@@ -1,0 +1,380 @@
+"""Chip smoke test of the PyTorch port on one NVIDIA H100.
+
+Builds the hand-written CUDA kernels from ``projected_langevin_sampling_torch/csrc``
+with nvcc, holds each against its plain PyTorch version at the main path's
+shapes, drives the main path (ONB + Gaussian at N=5000, M=512, J=1000, fp32:
+build, 20000 training steps, chunked predict at N*=4096) through the entry
+points a user calls, checks the launch counters, and runs the README demo on
+the card. Any failure raises; there is no CPU fallback.
+
+Run: python3 chip_smoke.py        (needs one CUDA card, nvcc under CUDA_HOME)
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+lists every kernel with its launches on the main path, its error against the
+plain version, its time, the plain version's time and its bound.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import runpy
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# H100 SXM peaks (NVIDIA data sheet, full 700 W): HBM bytes/s and fp32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+N, M, J = 5000, 512, 1000  # bench.py's headline shape
+STEPS, STEP_SIZE, N_TEST, CHUNK = 20_000, 1e-4, 4096, 256
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call, between CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_device_ms(fn, kernel_name: str, reps: int):
+    """Device milliseconds per call of the kernels named ``kernel_name``, from
+    the profiler's CUDA activity; None if the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        for e in prof.key_averages()
+        if kernel_name in e.key
+    )
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def headline_inputs(dtype):
+    """bench.py's build(): sorted X on [-3, 3], Z = linspace, lengthscale 0.01."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(-3, 3, (N, 1)), axis=0)
+    f_true = np.sin(2 * x[:, 0])
+    y = f_true + 0.2 * rng.normal(size=N)
+    z = np.linspace(-3, 3, M)[:, None]
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    return as_t(x), as_t(y), as_t(z)
+
+
+# --------------------------------------------------------------------------
+# phase 2: B2, the gram
+# --------------------------------------------------------------------------
+def phase_gram(gram):
+    results = {}
+    errs = []
+    for dtype, rtol, atol in ((torch.float64, 1e-12, 1e-12), (torch.float32, 1e-5, 1e-6)):
+        x, _, z = headline_inputs(dtype)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        ragged1 = torch.randn((333, 7), generator=gen, dtype=dtype, device="cuda")
+        ragged2 = torch.randn((1001, 7), generator=gen, dtype=dtype, device="cuda")
+        cases = {
+            "k(Z,X) 512x5000 D=1": (z / 0.01, x / 0.01, False),
+            "ragged 333x1001 D=7": (ragged1, ragged2, False),
+            "same k(Z,Z) 512x512": (z / 0.01, z / 0.01, True),
+            "same ragged 333x333 D=7": (ragged1, ragged1, True),
+        }
+        for name, (a, b, same) in cases.items():
+            a, b = a.contiguous(), b.contiguous()
+            got = gram.ard_gram_scaled(a, b, 1.3, same=same)
+            plain = gram.ard_gram_scaled_reference(a, b, 1.3, same=same)
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            ok = torch.allclose(got, plain, rtol=rtol, atol=atol)
+            log(f"  B2 {dtype} {name}: max|kernel - plain| = {err:.3e} ({'ok' if ok else 'FAIL'})")
+            require(ok, f"gram kernel disagrees with its plain version: {dtype} {name}")
+            if same:
+                require(bool((torch.diagonal(got) == 1.3).all()), f"same-input diagonal {name}")
+            if name.startswith("k(Z,X)") and dtype == torch.float32:
+                errs.append(err)
+    # time at the main path's largest gram, k(Z, X) in fp32
+    x, _, z = headline_inputs(torch.float32)
+    a, b = (z / 0.01).contiguous(), (x / 0.01).contiguous()
+    ms = cuda_ms(lambda: gram.ard_gram_scaled(a, b, 1.0), reps=200, warmup=5)
+    plain_ms = cuda_ms(lambda: gram.ard_gram_scaled_reference(a, b, 1.0), reps=50, warmup=2)
+    dev_ms = profiled_device_ms(lambda: gram.ard_gram_scaled(a, b, 1.0), "ard_gram_kernel", 50)
+    log(f"  B2 device time k(Z,X) fp32 (profiler): "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
+    out_bytes = 4 * M * N
+    in_bytes = 4 * (a.numel() + b.numel())
+    ops = M * N * 9  # norms add, 2*cross, sub, clamp, 2 scalings, exp (~2)
+    bound_bytes_ms = 1e3 * (out_bytes + in_bytes) / HBM_BYTES_PER_S
+    bound_ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    results.update(
+        ms=ms, plain_ms=plain_ms, max_abs_err=max(errs),
+        bound_ms=max(bound_bytes_ms, bound_ops_ms),
+        bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+    )
+    log(f"  B2 time k(Z,X) fp32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {results['bound_ms']:.4f} ms ({results['bound_by']})")
+    return results
+
+
+# --------------------------------------------------------------------------
+# phase 3: B1, the spectral trainer
+# --------------------------------------------------------------------------
+def _spectral_coeffs(m, eta, rising=False, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=gen, device="cuda")  # noqa: E731
+    sigma = 1.0 + 99.0 * rand(m)  # eta * sigma in [0.01, 1] for eta = 0.01
+    b = torch.randn((m,), generator=gen, device="cuda")
+    if rising:
+        b = -b.abs()
+        decay = 1.0 + eta * sigma
+    else:
+        decay = 1.0 - eta * sigma
+    return decay, eta * b, sigma, b
+
+
+def phase_spectral(spec):
+    eta, m, j = 0.01, M, J
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w0 = torch.randn((m, j), generator=gen, device="cuda")
+    res = {}
+
+    # (a) zero noise against the plain loop
+    decay, shift, sigma, b = _spectral_coeffs(m, eta)
+    kw = dict(eta=eta, patience=math.inf, e_const=12.5, num_steps=2000,
+              noise_scale=math.sqrt(2 * eta), zero_noise=True)
+    w_k, e_k, rec_k, steps_k = spec.spectral_train(w0, decay, shift, sigma, b, **kw)
+    w_p, e_p, rec_p, steps_p = spec.spectral_train_reference(w0, decay, shift, sigma, b, **kw)
+    torch.cuda.synchronize()
+    err_w = float((w_k - w_p).abs().max())
+    err_e = float(((e_k - e_p).abs() / e_p.abs()).max())
+    log(f"  B1 (a) zero noise T=2000: max|dW| = {err_w:.3e}, max rel dE = {err_e:.3e}")
+    require(torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6), "spectral W disagrees")
+    require(torch.allclose(e_k, e_p, rtol=1e-4), "spectral energies disagree")
+    require(int(steps_k) == int(steps_p) == 2000 and bool(rec_k.all()), "spectral steps")
+    res["max_abs_err"] = err_w
+
+    # (b) rising energy: the stop is fixed by patience / eta
+    decay, shift, sigma, b = _spectral_coeffs(m, eta, rising=True)
+    w_pos = w0.abs() + 1.0
+    kw = dict(eta=eta, patience=0.055, e_const=0.0, num_steps=200,
+              noise_scale=math.sqrt(2 * eta), zero_noise=True)
+    launches = spec.spectral_train.launches
+    w_k, e_k, rec_k, steps_k = spec.spectral_train(w_pos, decay, shift, sigma, b, **kw)
+    require(spec.spectral_train.launches - launches == 2, "the stop did not take the rerun pass")
+    w_p, e_p, rec_p, steps_p = spec.spectral_train_reference(w_pos, decay, shift, sigma, b, **kw)
+    torch.cuda.synchronize()
+    require(int(steps_k) == int(steps_p) == 7, f"stop step {int(steps_k)} vs {int(steps_p)}")
+    require(bool((rec_k == rec_p).all()), "recorded flags disagree")
+    require(bool((torch.isnan(e_k) == torch.isnan(e_p)).all()), "NaN tail disagrees")
+    require(torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6), "frozen particles disagree")
+    log(f"  B1 (b) rising-energy stop: steps_run {int(steps_k)} (plain {int(steps_p)}), "
+        "recorded flags, NaN tail and frozen particles agree")
+    # the rerun reproduces the Philox draws: a noisy run that stops equals a
+    # run of exactly steps_run steps from the same seed
+    kw_noisy = dict(kw, zero_noise=False, seed=77)
+    w_stop, _, _, s_stop = spec.spectral_train(w_pos, decay, shift, sigma, b, **kw_noisy)
+    kw_exact = dict(kw_noisy, patience=math.inf, num_steps=int(s_stop))
+    w_exact, _, _, _ = spec.spectral_train(w_pos, decay, shift, sigma, b, **kw_exact)
+    require(bool(torch.equal(w_stop, w_exact)), "rerun did not reproduce the Philox draws")
+    log(f"  B1 (b) noisy stop at {int(s_stop)} steps reproduces the same draws on rerun")
+
+    # (c) the law of the noise
+    ones = torch.ones(5000, device="cuda")
+    w_z = torch.zeros((5000, 1000), device="cuda")
+    eps, _, _, _ = spec.spectral_train(w_z, 0 * ones, 0 * ones, ones, 0 * ones, eta=eta,
+                                       patience=math.inf, e_const=0.0, num_steps=1,
+                                       noise_scale=1.0, seed=5)
+    mean, var = float(eps.double().mean()), float(eps.double().var())
+    log(f"  B1 (c) 5e6 Philox normals: mean {mean:.2e}, variance {var:.5f}")
+    require(abs(mean) < 5e-3 and abs(var - 1) < 5e-3, "Philox normals off N(0, 1)")
+    decay, shift, sigma, b = _spectral_coeffs(m, eta, seed=9)
+    w_t, _, _, _ = spec.spectral_train(w0, decay, shift, sigma, b, eta=eta, patience=math.inf,
+                                       e_const=0.0, num_steps=5000,
+                                       noise_scale=math.sqrt(2 * eta), seed=11)
+    law_mean = b / sigma
+    law_var = 2.0 / (sigma * (2.0 - eta * sigma))
+    z_mean = (w_t.mean(1) - law_mean) / torch.sqrt(law_var / j)
+    z_var = (w_t.var(1) - law_var) / (law_var * math.sqrt(2.0 / (j - 1)))
+    z_max = float(torch.max(z_mean.abs().max(), z_var.abs().max()))
+    log(f"  B1 (c) stationary law over {m} rows, J={j}, T=5000: max |z| = {z_max:.2f}")
+    require(z_max < 6, "rows do not follow the Euler stationary law")
+
+    # time at the main path's shape: one whole run of 20000 steps
+    decay, shift, sigma, b = _spectral_coeffs(m, 1e-4)
+    kw = dict(eta=1e-4, patience=math.inf, e_const=0.0, num_steps=STEPS,
+              noise_scale=math.sqrt(2e-4))
+    res["ms"] = cuda_ms(
+        lambda: spec.spectral_train(w0, decay, shift, sigma, b, seed=1, **kw), reps=3
+    )
+    res["plain_ms"] = cuda_ms(
+        lambda: spec.spectral_train_reference(w0, decay, shift, sigma, b, **kw), reps=1, warmup=0
+    )
+    dev_ms = profiled_device_ms(
+        lambda: spec.spectral_train(w0, decay, shift, sigma, b, seed=1, **kw),
+        "spectral_train_kernel", 2,
+    )
+    log(f"  B1 device time T={STEPS} (profiler): "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}")
+    elem_steps = m * j * STEPS
+    bound_ops_ms = 1e3 * elem_steps * spec.OPS_PER_ELEMENT_STEP / FP32_OPS_PER_S
+    bound_bytes_ms = 1e3 * 4 * (2 * m * j + 4 * m + STEPS) / HBM_BYTES_PER_S
+    res["bound_ms"] = max(bound_ops_ms, bound_bytes_ms)
+    res["bound_by"] = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+    log(f"  B1 time M={m} J={j} T={STEPS}: kernel {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.1f} ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}, "
+        f"{spec.OPS_PER_ELEMENT_STEP} ops per element-step)")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path at the headline width
+# --------------------------------------------------------------------------
+def phase_main_path(pt, gram, spec):
+    x, y, z = headline_inputs(torch.float32)
+    gram.ard_gram_scaled.launches = 0
+    spec.spectral_train.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel = pt.PLSKernel(
+        base_kernel=pt.ARDKernel(
+            lengthscales=torch.tensor([0.01], device="cuda"),
+            outputscale=torch.tensor(1.0, device="cuda"),
+        ),
+        approximation_samples=x,
+    )
+    basis = pt.build_orthonormal_basis(kernel, z, x, verbose=False)
+    require(basis.approximation_dimension == M, f"M_k = {basis.approximation_dimension}")
+    pls = pt.PLS(basis, pt.GaussianCost(y_train=y, observation_noise=torch.tensor(0.1, device="cuda")))
+    particles = pls.initialise_particles(J, generator=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # fast_path "auto" resolves to the spectral tier (and warns that a seed
+    # gives another sample path than the off tier)
+    trained, energies = pt.train_pls(pls, particles, STEPS, STEP_SIZE, generator=0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    x_test = torch.linspace(-3, 3, N_TEST, device="cuda")[:, None]
+    samples = pls.predict_samples(trained, x_test, generator=0, chunk_size=CHUNK)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {"gram": gram.ard_gram_scaled.launches, "spectral": spec.spectral_train.launches}
+
+    require(launches["spectral"] >= 1, "train_pls did not launch the spectral kernel")
+    require(launches["gram"] >= 2, "the build did not launch the gram kernel")
+    require(len(energies) == STEPS and all(math.isfinite(e) for e in energies), "energies")
+    require(energies[-1] < energies[0], "energy did not fall")
+    require(tuple(samples.shape) == (N_TEST, J) and bool(torch.isfinite(samples).all()),
+            "predicted samples")
+    rmse = float(torch.sqrt(torch.mean((samples.mean(1) - torch.sin(2 * x_test[:, 0])) ** 2)))
+    train_s = t2 - t1
+    log(f"  build {1e3 * (t1 - t0):.1f} ms; train_pls {STEPS} steps {1e3 * train_s:.1f} ms = "
+        f"{1e3 * train_s / STEPS:.5f} ms/step, {STEPS / train_s:.1f} updates/s; "
+        f"predict N*={N_TEST} chunk {CHUNK}: {1e3 * (t3 - t2):.1f} ms")
+    log(f"  energy {energies[0]:.2f} -> {energies[-1]:.2f}; predictive-mean RMSE vs "
+        f"sin(2x) {rmse:.4f}; launches {launches}")
+
+    # where the time goes, outside the counted run: the spectral system
+    # (P^T P on the card, fp64 eigh on the host) and the chunked predict's
+    # batched eigh of (blocks, M + c, M + c)
+    from projected_langevin_sampling_torch.ops.linalg import psd_sqrt
+    from projected_langevin_sampling_torch.training import spectral_system_host
+
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - start) / reps
+
+    system_ms = host_ms(lambda: spectral_system_host(basis, pls.cost))
+    a = torch.randn((N_TEST // CHUNK, M + CHUNK, M + CHUNK), device="cuda")
+    eigh_ms = host_ms(lambda: psd_sqrt(a @ a.transpose(-1, -2)))
+    log(f"  breakdown: spectral_system_host {system_ms:.1f} ms; batched eigh "
+        f"({N_TEST // CHUNK}, {M + CHUNK}, {M + CHUNK}) fp32 {eigh_ms:.1f} ms")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    import projected_langevin_sampling_torch as pt
+    from projected_langevin_sampling_torch.ops.cuda import build
+    from projected_langevin_sampling_torch.ops.cuda import gram, spectral_train as spec
+
+    # phase 1: environment and build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 1: card {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    logs = build.build()
+    log(f"  kernels built in {time.perf_counter() - t0:.1f} s (all nvcc in parallel)")
+    for name, out in logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("phase 2: B2 gram against its plain version")
+    gram_res = phase_gram(gram)
+    log("phase 3: B1 spectral trainer against its plain version and its law")
+    spec_res = phase_spectral(spec)
+    log(f"phase 4: main path, N={N}, M={M}, J={J}, fp32, {STEPS} steps")
+    launches = phase_main_path(pt, gram, spec)
+    log("phase 5: README demo in fp64 on the card")
+    rmse = runpy.run_path(os.path.join(ROOT, "examples", "readme_demo_torch.py"))["main"]()
+    require(rmse < 0.35, f"README demo RMSE {rmse}")
+
+    kernels = [
+        {"name": "spectral_train", "route": "cuda",
+         "source": "projected_langevin_sampling_torch/csrc/spectral_train.cu",
+         "replaces": "projected_langevin_sampling_tpu/ops/pallas/spectral_train.py:120",
+         "launches": launches["spectral"], "library_ms": None, "matched": True, **spec_res},
+        {"name": "ard_gram", "route": "cuda",
+         "source": "projected_langevin_sampling_torch/csrc/gram.cu",
+         "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
+         "launches": launches["gram"], "library_ms": None, "matched": True, **gram_res},
+    ]
+    key_order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms", "matched"]
+    print(smi)
+    print(json.dumps({"kernels": [{k: kern[k] for k in key_order} for kern in kernels]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""projected_langevin_sampling_torch: the PyTorch and CUDA port of
+``projected_langevin_sampling_tpu`` for NVIDIA Hopper (H100).
+
+This slice carries the main path: ARD and PLS grams, greedy inducing points,
+the orthonormal (KKL eigen-) basis with the Gaussian cost and identity link,
+Langevin training on the off, quadratic and spectral tiers, Matheron
+prediction and tempering. Two kernels are written by hand for ``sm_90a``
+(``csrc/``): the whole-run spectral trainer and the ARD gram. Entry points
+put their tensors on ``cuda`` unless the caller passes CPU tensors or
+``device="cpu"``.
+
+TF32 is switched off for the whole process on import: TF32 on Hopper keeps
+about three decimal digits, the same fault as the TPU's bf16 operands inside
+the squared-distance cancellation of the grams.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from projected_langevin_sampling_torch.models import link_functions  # noqa: E402
+from projected_langevin_sampling_torch.models.basis.orthonormal import (  # noqa: E402
+    OrthonormalBasis,
+    build_orthonormal_basis,
+)
+from projected_langevin_sampling_torch.models.costs.gaussian import GaussianCost  # noqa: E402
+from projected_langevin_sampling_torch.models.inducing_point_selectors.conditional_variance import (  # noqa: E402,E501
+    ConditionalVarianceInducingPointSelector,
+)
+from projected_langevin_sampling_torch.models.pls import PLS  # noqa: E402
+from projected_langevin_sampling_torch.models.temper.pls import TemperPLS  # noqa: E402
+from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel  # noqa: E402
+from projected_langevin_sampling_torch.training import train_pls  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PLS",
+    "ARDKernel",
+    "PLSKernel",
+    "OrthonormalBasis",
+    "build_orthonormal_basis",
+    "GaussianCost",
+    "link_functions",
+    "train_pls",
+    "TemperPLS",
+    "ConditionalVarianceInducingPointSelector",
+]

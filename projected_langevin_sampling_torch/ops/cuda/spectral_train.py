@@ -1,0 +1,222 @@
+"""B1: the whole-run spectral training kernel (``csrc/spectral_train.cu``)
+and its plain version.
+
+Replaces ``projected_langevin_sampling_tpu/ops/pallas/spectral_train.py``
+(``spectral_train_fused``). For T steps, elementwise in the eigenbasis of the
+drift:
+
+    W' = decay * W + shift + noise_scale * eps
+    energy_t = mean_j [0.5 sum_i sigma_i W'^2 - b . W'] + e_const
+
+with the reference's early stopping in simulation time: the stop step's
+update is applied and its energy written but not recorded, the particles
+freeze after it and later energies are NaN.
+
+Bound on the H100: operations (Philox, Box-Muller and a few FMAs per
+element-step; W is read and written once per run). The kernel keeps the
+particles in registers for all T steps, four elements to a thread, and draws
+its normals from a Philox4x32-10 written into the kernel and counted on
+(element group, step). Blocks cannot share a step's energy without a
+grid-wide sync, so this wrapper runs two passes: the kernel writes one
+partial energy per (step, block), the wrapper sums them, replays the early
+stopper and, if the stop falls before the last step, reruns steps 0..stop
+from W0 on the same counters. With infinite patience there is one pass.
+Unlike the TPU kernel there is no resident-size limit: nothing needs the
+whole matrix in one place.
+
+:func:`spectral_train` launches the kernel for CUDA tensors, in fp32 with a
+cast at entry and exit as on the TPU, and runs :func:`spectral_train_reference`
+only for tensors that lie on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.utils.early_stopper import (
+    replay_early_stopper,
+    run_with_stopper,
+)
+
+THREADS = 256  # csrc/spectral_train.cu: threads per block
+ELEMENTS_PER_THREAD = 4  # one Philox call gives the four normals of a thread
+# Steps per launch: bounds the (steps, blocks) partial-energy buffer, and lets
+# the wrapper stop launching once the stopper has fired.
+STEPS_PER_LAUNCH = 65536
+# Operations per element-step, for the bound in PERF.md and chip_smoke.py:
+# a quarter of a Philox4x32-10 call (10 rounds of 2 mul.hi, 2 mul.lo, 4 xor
+# and 2 key adds = 100 integer ops, over 4 normals = 25), half a Box-Muller
+# pair (2 int->float conversions and scalings, log, sqrt, sincos and 2
+# multiplies over 2 normals ~ 6), the update (2 multiplies, 2 adds = 4) and
+# the energy term (w*w, 2 FMAs and the running add counted as 2 each ~ 6).
+OPS_PER_ELEMENT_STEP = 25 + 6 + 4 + 6
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def spectral_train_reference(
+    w0: torch.Tensor,
+    decay: torch.Tensor,
+    shift: torch.Tensor,
+    energy_sigma: torch.Tensor,
+    b_rot: torch.Tensor,
+    *,
+    eta: float,
+    patience: float,
+    e_const,
+    num_steps: int,
+    noise_scale: float,
+    zero_noise: bool = False,
+    noise: torch.Tensor | None = None,
+    q_in: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """The plain PyTorch loop over T doing the kernel's math in the input's
+    dtype, with the early-stopper carry.
+
+    Noise per step: zeros with ``zero_noise``; else ``q_in^T @ noise[t]`` for
+    injected noise ``noise`` (T, M, J) given in U coordinates; else standard
+    normals from ``generator``. Returns ``(w, energies, recorded, steps_run)``.
+    """
+    dtype, device = w0.dtype, w0.device
+    decay_c, shift_c, sigma_c = decay[:, None], shift[:, None], energy_sigma[:, None]
+    if noise is not None:
+        if q_in is None:
+            raise ValueError("injected noise in U coordinates needs q_in")
+        noise = q_in.T @ noise  # (T, M, J) in W coordinates
+
+    def step(t, state):
+        (w,) = state
+        if zero_noise:
+            eps = torch.zeros_like(w)
+        elif noise is not None:
+            eps = noise[t]
+        else:
+            eps = torch.randn(w.shape, generator=generator, dtype=dtype, device=device)
+        w_new = decay_c * w + shift_c + noise_scale * eps
+        energy_j = 0.5 * torch.sum(sigma_c * torch.square(w_new), dim=0) - b_rot @ w_new + e_const
+        return (w_new,), torch.mean(energy_j)
+
+    (w,), energies, recorded, steps_run = run_with_stopper(
+        step, (w0,), num_steps, eta, patience, dtype, device
+    )
+    return w, energies, recorded, steps_run
+
+
+def _launch(w0, w_out, coeffs, partials, j, step0, num_steps, noise_scale, seed, zero_noise):
+    lib = build.load("spectral_train")
+    fn = lib.plst_spectral_train
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(
+        w0.data_ptr(), w_out.data_ptr(), *(c.data_ptr() for c in coeffs),
+        partials.data_ptr(), w0.numel(), j, partials.shape[1], step0, num_steps,
+        float(noise_scale), seed, int(zero_noise), stream,
+    )
+    build.check(err, "spectral_train kernel")
+    spectral_train.launches += 1
+
+
+def _run_kernel(w0, coeffs, j, num_steps, noise_scale, seed, zero_noise, e_const,
+                step_size=None, patience=None):
+    """Run ``num_steps`` steps in launches of at most STEPS_PER_LAUNCH.
+
+    Returns ``(w, energies)``. With ``step_size``/``patience`` it stops
+    launching once the replayed stopper has fired (the trace beyond is not
+    needed; the caller reruns to the stop)."""
+    total = w0.numel()
+    num_blocks = -(-total // (THREADS * ELEMENTS_PER_THREAD))
+    partials = torch.empty(
+        (min(num_steps, STEPS_PER_LAUNCH), num_blocks), dtype=torch.float32, device=w0.device
+    )
+    energies = torch.full((num_steps,), float("nan"), dtype=torch.float32, device=w0.device)
+    w = w0
+    for step0 in range(0, num_steps, STEPS_PER_LAUNCH):
+        n = min(STEPS_PER_LAUNCH, num_steps - step0)
+        w_next = torch.empty_like(w0)
+        _launch(w, w_next, coeffs, partials, j, step0, n, noise_scale, seed, zero_noise)
+        energies[step0:step0 + n] = partials[:n].sum(dim=1) / j + e_const
+        w = w_next
+        if step_size is not None and step0 + n < num_steps:
+            _, steps_run = replay_early_stopper(energies[: step0 + n], step_size, patience)
+            if int(steps_run) < step0 + n:
+                break
+    return w, energies
+
+
+def spectral_train(
+    w0: torch.Tensor,
+    decay: torch.Tensor,
+    shift: torch.Tensor,
+    energy_sigma: torch.Tensor,
+    b_rot: torch.Tensor,
+    *,
+    eta: float,
+    patience: float,
+    e_const,
+    num_steps: int,
+    noise_scale: float,
+    seed: int = 0,
+    zero_noise: bool = False,
+    noise: torch.Tensor | None = None,
+    q_in: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Run ``num_steps`` spectral steps; returns ``(w, energies, recorded,
+    steps_run)`` in ``w0``'s dtype.
+
+    On CUDA tensors the kernel runs in fp32 with Philox noise keyed on
+    ``seed``; injected ``noise`` is refused there, and ``q_in`` and
+    ``generator`` serve only the plain loop. ``zero_noise`` switches the noise
+    off for exact comparison with the plain version. On CPU tensors the plain
+    loop runs."""
+    if w0.device.type == "cpu":
+        return spectral_train_reference(
+            w0, decay, shift, energy_sigma, b_rot, eta=eta, patience=patience,
+            e_const=e_const, num_steps=num_steps, noise_scale=noise_scale,
+            zero_noise=zero_noise, noise=noise, q_in=q_in, generator=generator,
+        )
+    if w0.device.type != "cuda":
+        raise ValueError(f"spectral_train: particles on {w0.device}")
+    if noise is not None:
+        raise ValueError("spectral_train: the kernel draws its own Philox noise; "
+                         "injected noise is for CPU tensors")
+    if w0.ndim != 2:
+        raise ValueError(f"spectral_train: particles of shape {tuple(w0.shape)}")
+    m, j = w0.shape
+    coeffs = []
+    for name, c in (("decay", decay), ("shift", shift), ("sigma", energy_sigma), ("b", b_rot)):
+        if c.shape != (m,) or c.device != w0.device:
+            raise ValueError(f"spectral_train: {name} of shape {tuple(c.shape)} on {c.device}")
+        coeffs.append(c.to(torch.float32).contiguous())
+    if not 0 <= int(seed) < 2**64:
+        raise ValueError(f"spectral_train: seed {seed} outside [0, 2^64)")
+    dtype = w0.dtype
+    w32 = w0.to(torch.float32).contiguous()
+    e_const = float(e_const)
+    if num_steps == 0:
+        empty = torch.zeros(0, dtype=dtype, device=w0.device)
+        return w0.clone(), empty, empty.bool(), torch.tensor(0, dtype=torch.int32)
+    with torch.cuda.device(w0.device):
+        w, energies = _run_kernel(
+            w32, coeffs, j, num_steps, noise_scale, int(seed), zero_noise, e_const,
+            step_size=eta, patience=patience,
+        )
+        energies = energies.to(dtype)
+        recorded, steps_run = replay_early_stopper(energies, eta, patience)
+        stop = int(steps_run)
+        if stop < num_steps:
+            # the stop fell before the last step: rerun steps 0..stop from W0
+            # on the same Philox counters; the stop step's update is applied
+            w, _ = _run_kernel(w32, coeffs, j, stop, noise_scale, int(seed), zero_noise, e_const)
+            energies[stop:] = float("nan")
+    return w.to(dtype), energies, recorded, steps_run
+
+
+spectral_train.launches = 0

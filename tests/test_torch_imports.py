@@ -1,0 +1,38 @@
+"""The PyTorch port and its chip smoke script import nothing of JAX (jax,
+flax, optax) and nothing of the JAX package; an AST scan of every module."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "projected_langevin_sampling_tpu"}
+FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "examples" / "readme_demo_torch.py",
+]
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert path.exists(), path
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_port_has_the_slice_modules():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for module in ("ops/kernels.py", "ops/linalg.py", "training.py", "convert.py",
+                   "ops/cuda/gram.py", "ops/cuda/spectral_train.py",
+                   "models/basis/orthonormal.py", "models/pls.py"):
+        assert f"projected_langevin_sampling_torch/{module}" in names
