@@ -1,11 +1,20 @@
 """Chip smoke test of the PyTorch port on one NVIDIA H100.
 
 Builds the hand-written CUDA kernels from ``projected_langevin_sampling_torch/csrc``
-with nvcc, holds each against its plain PyTorch version at the main path's
-shapes, drives the main path (ONB + Gaussian at N=5000, M=512, J=1000, fp32:
-build, 20000 training steps, chunked predict at N*=4096) through the entry
-points a user calls, checks the launch counters, and runs the README demo on
-the card. Any failure raises; there is no CPU fallback.
+with nvcc, holds each against its plain PyTorch version at the main paths'
+shapes, and drives two main paths through the entry points a user calls,
+each with the launch counters set to 0 just before it and read just after:
+
+- slice 1, ONB + Gaussian at N=5000, M=512, J=1000, fp32: build, 20000
+  training steps on the spectral tier, chunked predict at N*=4096; then the
+  README demo on the card;
+- slice 2, bench.py's headline classification cell: the same basis, the
+  residual-smoothed Bernoulli cost, the MAP mean constant, 2000 steps of
+  the general kernel under the preconditioned discretisation, chunked
+  predict and Bernoulli probabilities, then the same at a step size that
+  converges; then the Euler Bernoulli cell.
+
+Any failure raises; there is no CPU fallback.
 
 Run: python3 chip_smoke.py        (needs one CUDA card, nvcc under CUDA_HOME)
 
@@ -61,12 +70,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_device_ms(fn, kernel_name: str, reps: int):
-    """Device milliseconds per call of the kernels named ``kernel_name``, from
-    the profiler's CUDA activity; None if the trace shows no device time."""
+def profiled_device_ms(fn, kernel_name, reps: int, warmup: bool = True):
+    """Device milliseconds per call of the kernels whose names contain
+    ``kernel_name`` (a name or a tuple of names), from the profiler's CUDA
+    activity; None if the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    names = (kernel_name,) if isinstance(kernel_name, str) else tuple(kernel_name)
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -75,7 +87,7 @@ def profiled_device_ms(fn, kernel_name: str, reps: int):
     total_us = sum(
         getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
         for e in prof.key_averages()
-        if kernel_name in e.key
+        if any(name in e.key for name in names)
     )
     return total_us / 1e3 / reps if total_us > 0 else None
 
@@ -324,6 +336,322 @@ def phase_main_path(pt, gram, spec):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 6: B3, the general-cost trainer
+# --------------------------------------------------------------------------
+N6, M6, J6, T6, ETA6 = 1000, 128, 256, 200, 1e-3  # the shape of the comparisons
+# kernel against plain version, both fp32 with sums in another order: 200
+# contracting steps keep the difference near fp32 rounding of |W|
+W_TOL, E_RTOL = 1e-3, 1e-5
+B3_KERNELS = ("forward_kernel", "update_kernel", "stop_kernel", "init_state_kernel")
+
+
+def synthetic_general(kind, n=N6, m_k=M6, j=J6, seed=0):
+    """general_train's arguments for a problem of cost ``kind``: a dense
+    random projection with P^T P about 2 I, prior eigenvalues uniform(0.5, 2),
+    prior draws as U0, and targets of f = sin(2x) on sorted x in [-3, 3]. The
+    Poisson square link trains at a mean shift of 3 from small particles, so
+    that F stays away from its pole at 0."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    f = np.sin(2 * np.sort(rng.uniform(-3, 3, n)))
+    labels = (f + 0.2 * rng.normal(size=n) > 0).astype(np.float64)
+    p = torch.randn((n, m_k), generator=gen, device="cuda") * math.sqrt(2.0 / n)
+    lam = 0.5 + 1.5 * torch.rand(m_k, generator=gen, device="cuda")
+    u0 = torch.sqrt(lam)[:, None] * torch.randn((m_k, j), generator=gen, device="cuda")
+    params, mean_shift, aux = (0.0, 0.0, 0.0), 0.0, None
+    if kind == "gaussian":
+        y, params = f + 0.1 * rng.normal(size=n), (0.1, 0.0, 0.0)
+    elif kind in ("bernoulli_sigmoid", "bernoulli_probit"):
+        y = labels
+    elif kind == "bernoulli_sigmoid_smoothed":
+        y, aux = labels, rng.uniform(0.3, 1.2, n)
+    elif kind == "poisson_square":
+        y, mean_shift, u0 = rng.poisson((3.0 + f) ** 2).astype(np.float64), 3.0, 0.2 * u0
+    elif kind == "student_t":
+        y, params = f + 0.1 * rng.standard_t(4.0, size=n), (4.0, 0.3, 0.0)
+    elif kind == "multimodal_identity":
+        y, params = f - 2.0 * (rng.uniform(size=n) < 0.4), (0.3, 2.0, 0.4)
+    else:
+        raise ValueError(kind)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    return dict(p=p, u0=u0, y=as_t(y), eigenvalues=lam, kind=kind, params=params,
+                mean_shift=mean_shift, aux=None if aux is None else as_t(aux))
+
+
+def hold_general(gen, what, **kw):
+    """B3 against its plain version with zero noise; returns (max|dW|, max rel dE)."""
+    u_k, e_k, rec_k, s_k = gen.general_train(**kw, zero_noise=True)
+    u_p, e_p, rec_p, s_p = gen.general_train_reference(**kw, zero_noise=True)
+    torch.cuda.synchronize()
+    err_w = float((u_k - u_p).abs().max())
+    err_e = float(((e_k - e_p).abs() / e_p.abs()).max())
+    scale = max(1.0, float(u_p.abs().max()))
+    log(f"  B3 {what:<44s} max|dW| {err_w:.3e} (max|W| {scale:.2f}), max rel dE {err_e:.3e}, "
+        f"E {float(e_p[0]):.4e} -> {float(e_p[-1]):.4e}")
+    require(err_w <= W_TOL * scale, f"general W disagrees: {what}")
+    require(err_e <= E_RTOL, f"general energies disagree: {what}")
+    require(int(s_k) == int(s_p) == kw["num_steps"] and bool(rec_k.all()),
+            f"general steps: {what}")
+    return err_w, err_e
+
+
+def hold_general_stop(gen, what, **kw):
+    """A run that stops: the same stop step, recorded flags, NaN tail and
+    frozen particles as the plain version."""
+    u_k, e_k, rec_k, s_k = gen.general_train(**kw, zero_noise=True)
+    u_p, e_p, rec_p, s_p = gen.general_train_reference(**kw, zero_noise=True)
+    torch.cuda.synchronize()
+    require(1 < int(s_k) == int(s_p) < kw["num_steps"],
+            f"{what}: steps_run {int(s_k)} vs plain {int(s_p)}")
+    require(bool((rec_k == rec_p).all()), f"{what}: recorded flags disagree")
+    require(bool((torch.isnan(e_k) == torch.isnan(e_p)).all()), f"{what}: NaN tail disagrees")
+    # frozen at the stop step, whose entries may be huge or overflowed: the
+    # same non-finite entries, and the finite ones normwise (an entry may be a
+    # near-cancelling sum of growing modes, so elementwise relative errors mean
+    # nothing there)
+    finite = torch.isfinite(u_p)
+    require(bool((finite == torch.isfinite(u_k)).all())
+            and bool((torch.isnan(u_k) == torch.isnan(u_p)).all())
+            and bool((u_k[~finite & ~torch.isnan(u_p)] == u_p[~finite & ~torch.isnan(u_p)]).all()),
+            f"{what}: non-finite frozen particles disagree")
+    require(bool(finite.any()), f"{what}: no finite particles to compare")
+    scale = float(u_p[finite].abs().max())
+    err = float((u_k[finite] - u_p[finite]).abs().max())
+    require(err <= 1e-4 * scale, f"{what}: frozen particles disagree ({err:.3e} of {scale:.3e})")
+    log(f"  B3 {what}: steps_run {int(s_k)} (plain {int(s_p)}), recorded flags and NaN tail "
+        f"agree; frozen particles max|dW| {err:.3e} of max|W| {scale:.3e}, "
+        f"{int((~finite).sum())} non-finite entries in both")
+
+
+def drift_system(prob):
+    """fp64 A = P^T P / s + diag(1 / lambda) and b = P^T (y - m0) / s of a
+    Gaussian problem."""
+    p64, s = prob["p"].double(), prob["params"][0]
+    a = p64.T @ p64 / s + torch.diag(1.0 / prob["eigenvalues"].double())
+    b = p64.T @ (prob["y"].double() - prob["mean_shift"]) / s
+    return a, b
+
+
+def classification_inputs():
+    """bench.py's build() of the smoothed Bernoulli cell: the headline X and Z,
+    labels f_true + 0.2 noise > 0, smoothing stds uniform(0.3, 1.2)."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(-3, 3, (N, 1)), axis=0)
+    labels = (np.sin(2 * x[:, 0]) + 0.2 * rng.normal(size=N) > 0).astype(np.float64)
+    std = rng.uniform(0.3, 1.2, N)
+    z = np.linspace(-3, 3, M)[:, None]
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    return as_t(x), as_t(labels), as_t(std), as_t(z)
+
+
+def headline_basis(pt, x, z):
+    kernel = pt.PLSKernel(
+        base_kernel=pt.ARDKernel(
+            lengthscales=torch.tensor([0.01], device="cuda"),
+            outputscale=torch.tensor(1.0, device="cuda"),
+        ),
+        approximation_samples=x,
+    )
+    basis = pt.build_orthonormal_basis(kernel, z, x, verbose=False)
+    require(basis.approximation_dimension == M, f"M_k = {basis.approximation_dimension}")
+    return basis
+
+
+def phase_general(pt, gen):
+    from projected_langevin_sampling_torch.training import general_fused_cost_spec
+
+    res = {}
+    # (a) zero noise: every cost kind under every discretisation
+    for kind in gen.COST_KINDS:
+        prob = synthetic_general(kind)
+        for disc in gen.DISCRETISATIONS:
+            hold_general(gen, f"{kind}/{disc} N={N6} M_k={M6} J={J6} T={T6}", **prob,
+                         eta=ETA6, patience=math.inf, num_steps=T6, discretisation=disc)
+
+    # ... and the main path's cell at the headline shape, with a nonzero mean shift
+    x, labels, std, z = classification_inputs()
+    basis = headline_basis(pt, x, z).replace(mean_constant=0.3)
+    cost = pt.make_smoothed_bernoulli_cost(labels, std)
+    kind, p0, p1, p2, aux = general_fused_cost_spec(basis, cost)
+    require(kind == "bernoulli_sigmoid_smoothed", f"headline cost kind {kind}")
+    u0 = pt.PLS(basis, cost).initialise_particles(J, generator=0)
+    headline = dict(p=basis.train_projection, u0=u0, y=cost.y_train,
+                    eigenvalues=basis.eigenvalues, kind=kind, params=(p0, p1, p2),
+                    mean_shift=basis.mean_constant, aux=aux, eta=STEP_SIZE,
+                    patience=math.inf, num_steps=T6, discretisation="preconditioned")
+    res["max_abs_err"], _ = hold_general(
+        gen, f"{kind}/preconditioned N={N} M_k={M} J={J} T={T6}", **headline)
+
+    # (b) stops: a diverging step (non-finite energy), and a patience stop on an
+    # energy that rises from the first step (every mode of A unstable, eta sigma >= 3)
+    prob = synthetic_general("gaussian")
+    hold_general_stop(gen, "diverging eta=50", **prob, eta=50.0, patience=math.inf,
+                      num_steps=20)
+    sigma_min = float(torch.linalg.eigvalsh(drift_system(prob)[0])[0])
+    eta = 3.0 / sigma_min
+    hold_general_stop(gen, f"patience stop eta={eta:.4f} patience=3.5 eta", **prob, eta=eta,
+                      patience=3.5 * eta, num_steps=20)
+
+    # (c) determinism: two noisy runs with one seed are bitwise equal (no atomics)
+    prob = synthetic_general("bernoulli_sigmoid_smoothed")
+    kw = dict(prob, eta=ETA6, patience=math.inf, num_steps=T6, discretisation="preconditioned",
+              seed=7)
+    u1, e1, _, _ = gen.general_train(**kw)
+    u2, e2, _, _ = gen.general_train(**kw)
+    require(bool(torch.equal(u1, u2) and torch.equal(e1, e2)), "noisy reruns differ")
+    log("  B3 two noisy runs with one seed are bitwise equal")
+
+    # (d) the law: Gaussian kind, Euler with noise; in the eigenbasis of A the
+    # rows follow N(b_rot / sigma, 2 / (sigma (2 - eta sigma)))
+    eta, j_law, t_law = 0.01, 1000, 5000
+    prob = synthetic_general("gaussian", m_k=32, j=j_law, seed=4)
+    u_t, _, _, _ = gen.general_train(**prob, eta=eta, patience=math.inf, num_steps=t_law,
+                                     seed=11)
+    a, b = drift_system(prob)
+    sigma, q = torch.linalg.eigh(a)
+    v = q.T @ u_t.double()
+    law_mean, law_var = (q.T @ b) / sigma, 2.0 / (sigma * (2.0 - eta * sigma))
+    z_mean = (v.mean(1) - law_mean) / torch.sqrt(law_var / j_law)
+    z_var = (v.var(1) - law_var) / (law_var * math.sqrt(2.0 / (j_law - 1)))
+    z_max = float(torch.max(z_mean.abs().max(), z_var.abs().max()))
+    log(f"  B3 stationary law over 32 rows, J={j_law}, T={t_law}, eta sigma in "
+        f"[{eta * float(sigma[0]):.3f}, {eta * float(sigma[-1]):.3f}]: max |z| = {z_max:.2f}")
+    require(z_max < 6, "rows do not follow the Euler stationary law")
+
+    # (e) time at the headline: one run of T6 steps with noise
+    noisy = dict(headline, seed=1)
+    res["ms"] = cuda_ms(lambda: gen.general_train(**noisy), reps=3)
+    res["plain_ms"] = cuda_ms(lambda: gen.general_train_reference(**headline), reps=1)
+    dev_ms = profiled_device_ms(lambda: gen.general_train(**noisy), B3_KERNELS, 1)
+    p = basis.train_projection
+    dc = torch.randn((N, J), device="cuda")
+    matmul_ms = cuda_ms(lambda: (p @ u0, p.T @ dc), reps=20, warmup=2)
+    bound_ops_ms = 1e3 * T6 * gen.step_operations(kind, N, M, J) / FP32_OPS_PER_S
+    bound_bytes_ms = 1e3 * 4 * (N * M + 2 * M * J + 2 * N + M + T6) / HBM_BYTES_PER_S
+    res["bound_ms"] = max(bound_ops_ms, bound_bytes_ms)
+    res["bound_by"] = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+    log(f"  B3 device time {kind}/preconditioned T={T6} (profiler): "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}")
+    log(f"  B3 time N={N} M_k={M} J={J} T={T6}: kernel {res['ms']:.3f} ms "
+        f"({res['ms'] / T6:.4f} ms/step), plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.3f} ms ({res['bound_by']}, "
+        f"{gen.step_operations(kind, N, M, J):.4e} ops/step)")
+    log(f"  context: the plain version's two fp32 torch.matmul products of one step "
+        f"(P U and P^T dc) take {matmul_ms:.4f} ms")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 7: the slice 2 main path, bench.py's headline classification cell
+# --------------------------------------------------------------------------
+STEPS7 = 2000
+# Accuracy of sign(mean probability) against sign(sin 2x) on N*=4096 test
+# points; chance is 0.5 with a spread of 0.008.
+# - The bench cell (step 1e-4) is a timing cell: 2000 steps are 0.2 in
+#   simulation time, the preconditioned data drift is scaled by the ONB
+#   eigenvalues (about 1e-4 to 1e-2 here, printed), and the particles start
+#   from N(0, I), so they keep most of their initial noise. The off tier
+#   reaches the same accuracy as the kernel there. 0.55 is six spreads above
+#   chance: a path that does not train, or drifts the wrong way, fails it.
+# - A converging run (step 1e-2: 20 in simulation time, where the
+#   preconditioned prior relaxes at rate 1) must classify: the labels
+#   disagree with sin(2x) only within noise of its zero crossings, so 0.9.
+ACCURACY_MIN_BENCH, ACCURACY_MIN_CONVERGED, STEP_CONVERGED = 0.55, 0.9, 1e-2
+
+
+def predict_accuracy(pls, trained, x_test):
+    """Bernoulli probabilities at x_test (chunked predict, then cost.predict),
+    checked to be finite and in [0, 1], and their accuracy against sin(2x) > 0."""
+    probs = pls.cost.predict(pls.predict_samples(trained, x_test, generator=0,
+                                                 chunk_size=CHUNK)).probs
+    require(tuple(probs.shape) == (x_test.shape[0],) and bool(torch.isfinite(probs).all())
+            and bool(((probs >= 0) & (probs <= 1)).all()), "probabilities")
+    return float(((probs > 0.5) == (torch.sin(2 * x_test[:, 0]) > 0)).float().mean())
+
+
+def phase_classification(pt, gram, spec, gen):
+    x, labels, std, z = classification_inputs()
+    x_test = torch.linspace(-3, 3, N_TEST, device="cuda")[:, None]
+    for counted in (gram.ard_gram_scaled, spec.spectral_train, gen.general_train):
+        counted.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    basis = headline_basis(pt, x, z)
+    cost = pt.make_smoothed_bernoulli_cost(labels, std)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m0 = pt.fit_mean_constant_map(basis, cost)
+    t2 = time.perf_counter()
+    pls = pt.PLS(basis.replace(mean_constant=m0), cost)
+    particles = pls.initialise_particles(J, generator=0)
+    train = dict(fast_path="general_fused", discretisation="preconditioned")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    trained, energies = pt.train_pls(pls, particles, STEPS7, STEP_SIZE, generator=0, **train)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    accuracy = predict_accuracy(pls, trained, x_test)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    trained_c, energies_c = pt.train_pls(pls, particles, STEPS7, STEP_CONVERGED, generator=0,
+                                         **train)
+    accuracy_c = predict_accuracy(pls, trained_c, x_test)
+    torch.cuda.synchronize()
+    launches = {"gram": gram.ard_gram_scaled.launches, "spectral": spec.spectral_train.launches,
+                "general": gen.general_train.launches}
+
+    require(launches["general"] == 2, "train_pls did not launch the general kernel")
+    require(launches["gram"] >= 2, "the build did not launch the gram kernel")
+    require(m0 != 0.0 and math.isfinite(m0), f"MAP mean constant {m0}")
+    for e in (energies, energies_c):
+        require(len(e) == STEPS7 and all(math.isfinite(v) for v in e), "energies")
+        require(e[-1] < e[0], "energy did not fall")
+    train_s = t4 - t3
+    log(f"  ONB eigenvalues in [{float(basis.eigenvalues.min()):.3e}, "
+        f"{float(basis.eigenvalues.max()):.3e}]; build {1e3 * (t1 - t0):.1f} ms; MAP mean "
+        f"constant {m0:.5f} in {1e3 * (t2 - t1):.1f} ms")
+    log(f"  bench cell: train_pls {STEPS7} steps of {STEP_SIZE} (general_fused, "
+        f"preconditioned) {1e3 * train_s:.1f} ms = {1e3 * train_s / STEPS7:.4f} ms/step, "
+        f"{STEPS7 / train_s:.1f} updates/s; predict N*={N_TEST} chunk {CHUNK} and "
+        f"probabilities {1e3 * (t5 - t4):.1f} ms; energy {energies[0]:.2f} -> "
+        f"{energies[-1]:.2f}; accuracy {accuracy:.4f} (threshold {ACCURACY_MIN_BENCH})")
+    log(f"  converging run: {STEPS7} steps of {STEP_CONVERGED}: energy {energies_c[0]:.2f} -> "
+        f"{energies_c[-1]:.2f}; accuracy {accuracy_c:.4f} (threshold "
+        f"{ACCURACY_MIN_CONVERGED}); launches {launches}")
+    require(accuracy > ACCURACY_MIN_BENCH, f"bench-cell accuracy {accuracy}")
+    require(accuracy_c > ACCURACY_MIN_CONVERGED, f"converged accuracy {accuracy_c}")
+
+    # where train_pls's time goes: B3's device time in a second, profiled run
+    b3_ms = profiled_device_ms(
+        lambda: pt.train_pls(pls, particles, STEPS7, STEP_SIZE, generator=0, **train),
+        B3_KERNELS, 1, warmup=False,
+    )
+    if b3_ms is None:
+        log("  breakdown: B3 device time not measured (the trace shows none)")
+    else:
+        log(f"  breakdown: MAP fit {1e3 * (t2 - t1):.1f} ms; train_pls {1e3 * train_s:.1f} ms; "
+            f"B3 on the device in a profiled rerun {b3_ms:.1f} ms; the difference, host "
+            f"remainder plus run-to-run noise, {1e3 * train_s - b3_ms:.1f} ms")
+
+    # bench.py's Euler Bernoulli cell on the same basis (mean constant 0)
+    pls_b = pt.PLS(basis, pt.BernoulliCost(y_train=labels))
+    before = gen.general_train.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, energies_b = pt.train_pls(pls_b, particles, STEPS7, STEP_SIZE, generator=0,
+                                 fast_path="general_fused")
+    torch.cuda.synchronize()
+    euler_s = time.perf_counter() - t0
+    require(gen.general_train.launches > before, "the Euler cell did not launch the kernel")
+    require(len(energies_b) == STEPS7 and all(math.isfinite(e) for e in energies_b)
+            and energies_b[-1] < energies_b[0], "Euler Bernoulli energies")
+    log(f"  bernoulli/euler train_pls {STEPS7} steps {1e3 * euler_s:.1f} ms = "
+        f"{1e3 * euler_s / STEPS7:.4f} ms/step, {STEPS7 / euler_s:.1f} updates/s; "
+        f"energy {energies_b[0]:.2f} -> {energies_b[-1]:.2f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -331,6 +659,7 @@ def main() -> int:
     import projected_langevin_sampling_torch as pt
     from projected_langevin_sampling_torch.ops.cuda import build
     from projected_langevin_sampling_torch.ops.cuda import gram, spectral_train as spec
+    from projected_langevin_sampling_torch.ops.cuda import general_train as gen
 
     # phase 1: environment and build
     smi = subprocess.run(
@@ -355,6 +684,11 @@ def main() -> int:
     log("phase 5: README demo in fp64 on the card")
     rmse = runpy.run_path(os.path.join(ROOT, "examples", "readme_demo_torch.py"))["main"]()
     require(rmse < 0.35, f"README demo RMSE {rmse}")
+    log("phase 6: B3 general-cost trainer against its plain version and its law")
+    gen_res = phase_general(pt, gen)
+    log(f"phase 7: slice 2 main path, smoothed Bernoulli classification, N={N}, M={M}, "
+        f"J={J}, fp32, {STEPS7} steps")
+    launches_7 = phase_classification(pt, gram, spec, gen)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",
@@ -365,6 +699,10 @@ def main() -> int:
          "source": "projected_langevin_sampling_torch/csrc/gram.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
          "launches": launches["gram"], "library_ms": None, "matched": True, **gram_res},
+        {"name": "general_train", "route": "cuda",
+         "source": "projected_langevin_sampling_torch/csrc/general_train.cu",
+         "replaces": "projected_langevin_sampling_tpu/ops/pallas/general_train.py:307",
+         "launches": launches_7["general"], "library_ms": None, "matched": True, **gen_res},
     ]
     key_order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "matched"]

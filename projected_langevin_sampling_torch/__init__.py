@@ -1,13 +1,15 @@
 """projected_langevin_sampling_torch: the PyTorch and CUDA port of
 ``projected_langevin_sampling_tpu`` for NVIDIA Hopper (H100).
 
-This slice carries the main path: ARD and PLS grams, greedy inducing points,
-the orthonormal (KKL eigen-) basis with the Gaussian cost and identity link,
-Langevin training on the off, quadratic and spectral tiers, Matheron
-prediction and tempering. Two kernels are written by hand for ``sm_90a``
-(``csrc/``): the whole-run spectral trainer and the ARD gram. Entry points
-put their tensors on ``cuda`` unless the caller passes CPU tensors or
-``device="cpu"``.
+Ported so far: ARD and PLS grams, greedy inducing points, the orthonormal
+(KKL eigen-) basis, every closed-form cost (Gaussian, Bernoulli, smoothed
+Bernoulli, Poisson, Student-T, the bimodal mixture) with the MAP mean
+constant, Langevin training on the off, quadratic, spectral and general_fused
+tiers under the euler, exponential and preconditioned discretisations,
+Matheron prediction and tempering. Three kernels are written by hand for
+``sm_90a`` (``csrc/``): the whole-run spectral trainer, the whole-run
+general-cost trainer and the ARD gram. Entry points put their tensors on
+``cuda`` unless the caller passes CPU tensors or ``device="cpu"``.
 
 TF32 is switched off for the whole process on import: TF32 on Hopper keeps
 about three decimal digits, the same fault as the TPU's bf16 operands inside
@@ -24,10 +26,20 @@ from projected_langevin_sampling_torch.models.basis.orthonormal import (  # noqa
     OrthonormalBasis,
     build_orthonormal_basis,
 )
-from projected_langevin_sampling_torch.models.costs.gaussian import GaussianCost  # noqa: E402
+from projected_langevin_sampling_torch.models.costs import (  # noqa: E402
+    BernoulliCost,
+    GaussianCost,
+    MultiModalCost,
+    PoissonCost,
+    SmoothedBernoulliCost,
+    StudentTCost,
+    make_smoothed_bernoulli_cost,
+    residual_smoothing_std,
+)
 from projected_langevin_sampling_torch.models.inducing_point_selectors.conditional_variance import (  # noqa: E402,E501
     ConditionalVarianceInducingPointSelector,
 )
+from projected_langevin_sampling_torch.models.mean_constant import fit_mean_constant_map  # noqa: E402
 from projected_langevin_sampling_torch.models.pls import PLS  # noqa: E402
 from projected_langevin_sampling_torch.models.temper.pls import TemperPLS  # noqa: E402
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel  # noqa: E402
@@ -42,6 +54,14 @@ __all__ = [
     "OrthonormalBasis",
     "build_orthonormal_basis",
     "GaussianCost",
+    "BernoulliCost",
+    "SmoothedBernoulliCost",
+    "PoissonCost",
+    "StudentTCost",
+    "MultiModalCost",
+    "make_smoothed_bernoulli_cost",
+    "residual_smoothing_std",
+    "fit_mean_constant_map",
     "link_functions",
     "train_pls",
     "TemperPLS",

@@ -8,8 +8,16 @@ the same basis and cost, eigenvector signs included.
 
 from __future__ import annotations
 
+from projected_langevin_sampling_torch.models import link_functions
 from projected_langevin_sampling_torch.models.basis.orthonormal import OrthonormalBasis
-from projected_langevin_sampling_torch.models.costs.gaussian import GaussianCost
+from projected_langevin_sampling_torch.models.costs import (
+    BernoulliCost,
+    GaussianCost,
+    MultiModalCost,
+    PoissonCost,
+    SmoothedBernoulliCost,
+    StudentTCost,
+)
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel
 from projected_langevin_sampling_torch.utils.device import as_tensor
 
@@ -52,4 +60,78 @@ def gaussian_cost_from_numpy(params: dict, device=None) -> GaussianCost:
     return GaussianCost(
         y_train=as_tensor(params["y_train"], device=device),
         observation_noise=as_tensor(params["observation_noise"], device=device),
+    )
+
+
+_LINKS = {
+    "identity": link_functions.IdentityLinkFunction,
+    "sigmoid": link_functions.SigmoidLinkFunction,
+    "probit": link_functions.ProbitLinkFunction,
+    "square": link_functions.SquareLinkFunction,
+}
+
+
+def link_from_name(name: str, jitter: float | None = None) -> link_functions.PLSLinkFunction:
+    """``"identity"``, ``"sigmoid"``, ``"probit"`` or ``"square"``; the
+    probability links take an optional ``jitter``."""
+    if name not in _LINKS:
+        raise ValueError(f"Unknown link {name!r} (known: {sorted(_LINKS)})")
+    return _LINKS[name]() if jitter is None else _LINKS[name](jitter=float(jitter))
+
+
+def _link(params: dict, default: str):
+    return link_from_name(params.get("link", default), params.get("jitter"))
+
+
+def bernoulli_cost_from_numpy(params: dict, device=None) -> BernoulliCost:
+    """``{"y_train": (N,)}`` plus optional ``"link"`` (default "sigmoid") and
+    ``"jitter"``."""
+    return BernoulliCost(
+        y_train=as_tensor(params["y_train"], device=device),
+        link_function=_link(params, "sigmoid"),
+    )
+
+
+def smoothed_bernoulli_cost_from_numpy(params: dict, device=None) -> SmoothedBernoulliCost:
+    """``{"y_train": (N,), "smoothing_std": (N,), "gh_nodes": (Q,),
+    "gh_weights": (Q,)}`` plus optional ``"gh_rule"``, ``"link"`` (only
+    "sigmoid") and ``"jitter"``."""
+    return SmoothedBernoulliCost(
+        y_train=as_tensor(params["y_train"], device=device),
+        smoothing_std=as_tensor(params["smoothing_std"], device=device),
+        gh_nodes=as_tensor(params["gh_nodes"], device=device),
+        gh_weights=as_tensor(params["gh_weights"], device=device),
+        link_function=_link(params, "sigmoid"),
+        gh_rule=params.get("gh_rule", "custom"),
+    )
+
+
+def poisson_cost_from_numpy(params: dict, device=None) -> PoissonCost:
+    """``{"y_train": (N,)}`` plus optional ``"link"`` (default "square")."""
+    return PoissonCost(
+        y_train=as_tensor(params["y_train"], device=device), link_function=_link(params, "square")
+    )
+
+
+def student_t_cost_from_numpy(params: dict, device=None) -> StudentTCost:
+    """``{"y_train": (N,), "degrees_of_freedom": float}`` plus optional
+    ``"scale"`` (default 1) and ``"link"`` (default "identity")."""
+    return StudentTCost(
+        y_train=as_tensor(params["y_train"], device=device),
+        degrees_of_freedom=float(params["degrees_of_freedom"]),
+        scale=float(params.get("scale", 1.0)),
+        link_function=_link(params, "identity"),
+    )
+
+
+def multimodal_cost_from_numpy(params: dict, device=None) -> MultiModalCost:
+    """``{"y_train": (N,), "observation_noise": (), "shift": float,
+    "bernoulli_noise": float}`` plus optional ``"link"`` (default
+    "identity")."""
+    return MultiModalCost(
+        y_train=as_tensor(params["y_train"], device=device),
+        observation_noise=as_tensor(params["observation_noise"], device=device),
+        shift=float(params["shift"]),
+        bernoulli_noise=float(params["bernoulli_noise"]),
+        link_function=_link(params, "identity"),
     )

@@ -17,10 +17,11 @@
 // except one partial-energy word per block. At M = 512, J = 1000 that is 500
 // blocks of 256 threads, about four blocks on each of the 132 SMs.
 //
-// Noise: Philox4x32-10 keyed on the 64-bit seed and counted on (element group,
-// step), so any rerun of steps 0..s reproduces the same draws. Uniforms are
-// 24-bit and lie in (0, 1], so log never sees 0; both Box-Muller outputs are
-// used; everything is fp32, as on the TPU.
+// Noise: Philox4x32-10 (philox.cuh, shared with general_train.cu) keyed on
+// the 64-bit seed and counted on (element group, step), so any rerun of steps
+// 0..s reproduces the same draws. Uniforms are 24-bit and lie in (0, 1], so
+// log never sees 0; both Box-Muller outputs are used; everything is fp32, as
+// on the TPU.
 //
 // Energy and stopping: blocks cannot see each other's partial energies within
 // a step without a grid-wide sync, so the kernel writes one partial per
@@ -36,38 +37,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ELEMENTS_PER_THREAD = 4;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-  const uint32_t m0 = 0xD2511F53u, m1 = 0xCD9E8D57u;
-  const uint32_t w0 = 0x9E3779B9u, w1 = 0xBB67AE85u;
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t hi0 = __umulhi(m0, ctr.x), lo0 = m0 * ctr.x;
-    const uint32_t hi1 = __umulhi(m1, ctr.z), lo1 = m1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-    key.x += w0;
-    key.y += w1;
-  }
-  return ctr;
-}
-
-// uniform in (0, 1] from the top 24 bits
-__device__ __forceinline__ float uniform_open0(uint32_t bits) {
-  return __uint2float_rn((bits >> 8) + 1u) * 5.9604644775390625e-08f;  // 2^-24
-}
-
-__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& z0, float& z1) {
-  const float r = sqrtf(-2.0f * logf(uniform_open0(a)));
-  float s, c;
-  sincospif(2.0f * uniform_open0(b), &s, &c);
-  z0 = r * c;
-  z1 = r * s;
-}
 
 __global__ void __launch_bounds__(THREADS)
 spectral_train_kernel(const float* __restrict__ w0, float* __restrict__ w_out,
@@ -99,10 +75,8 @@ spectral_train_kernel(const float* __restrict__ w0, float* __restrict__ w_out,
   for (int s = 0; s < num_steps; ++s) {
     float z[ELEMENTS_PER_THREAD] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (!zero_noise) {
-      const uint4 bits = philox4x32_10(
-          make_uint4((uint32_t)group, (uint32_t)(group >> 32), (uint32_t)(step0 + s), 0u), key);
-      box_muller(bits.x, bits.y, z[0], z[1]);
-      box_muller(bits.z, bits.w, z[2], z[3]);
+      plst::normals4(
+          make_uint4((uint32_t)group, (uint32_t)(group >> 32), (uint32_t)(step0 + s), 0u), key, z);
     }
     float energy = 0.0f;
 #pragma unroll
@@ -142,7 +116,7 @@ extern "C" int plst_spectral_train(const void* w0, void* w_out, const void* deca
   if (j <= 0 || num_blocks != (int)((total + per_block - 1) / per_block)) {
     return (int)cudaErrorInvalidValue;
   }
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const uint2 key = plst::philox_key(seed);
   spectral_train_kernel<<<num_blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w0), static_cast<float*>(w_out),
       static_cast<const float*>(decay), static_cast<const float*>(shift),

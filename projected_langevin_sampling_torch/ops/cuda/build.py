@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, which is loaded with ``ctypes``.
 Libraries go into ``build/cuda/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is built when a
+``.gitignore``), named by a hash of the source, the ``csrc/*.cuh`` headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. Nothing is built when a
 module is imported: a kernel's first launch builds its library, and
 :func:`build` builds several at once, one ``nvcc`` per source, all started
 together.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +24,7 @@ import threading
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "cuda")
-SOURCES = ("gram", "spectral_train")
+SOURCES = ("gram", "spectral_train", "general_train")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -47,11 +49,27 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: str, seen: list[str]) -> list[str]:
+    """``path`` and, depth first, every header of ``csrc/`` it includes."""
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for header in _INCLUDE.findall(text):
+        header_path = os.path.join(CSRC_DIR, header.decode())
+        if header_path not in seen and os.path.exists(header_path):
+            _sources(header_path, seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    source = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(os.path.join(CSRC_DIR, f"{name}.cu"), []):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names=SOURCES) -> dict[str, str]:

@@ -34,5 +34,9 @@ def test_port_has_the_slice_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ("ops/kernels.py", "ops/linalg.py", "training.py", "convert.py",
                    "ops/cuda/gram.py", "ops/cuda/spectral_train.py",
-                   "models/basis/orthonormal.py", "models/pls.py"):
+                   "models/basis/orthonormal.py", "models/pls.py",
+                   "ops/cuda/general_train.py", "models/mean_constant.py",
+                   "models/costs/bernoulli.py", "models/costs/poisson.py",
+                   "models/costs/student_t.py", "models/costs/multimodal.py",
+                   "models/costs/smoothed_bernoulli.py"):
         assert f"projected_langevin_sampling_torch/{module}" in names

@@ -80,11 +80,14 @@ def test_tier_resolution():
     assert ttrain.resolve_fast_path(tbasis, tcost, "auto") == "spectral"
     assert ttrain.resolve_fast_path(tbasis, tcost, "spectral_fused") == "spectral"
     assert ttrain.resolve_fast_path(tbasis, tcost, "quadratic") == "quadratic"
-    for fast_path in ("general_fused", "quadratic_fused"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            ttrain.resolve_fast_path(tbasis, tcost, fast_path)
+    # the general kernel and the split discretisations are ported
+    assert ttrain.resolve_fast_path(tbasis, tcost, "general_fused") == "general_fused"
+    for discretisation in ("exponential", "preconditioned"):
+        assert ttrain.resolve_tier(tbasis, tcost, "general_fused", discretisation) == "general_fused"
+        assert ttrain.resolve_tier(tbasis, tcost, "off", discretisation) == "off"
+    assert ttrain.resolve_tier(tbasis, tcost, "auto", "exponential") == "off"
+    assert ttrain.resolve_tier(tbasis, tcost, "auto", "preconditioned") == "spectral"
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        ttrain.resolve_fast_path(tbasis, tcost, "quadratic_fused")
     with pytest.raises(NotImplementedError, match="slice 5"):
         ttrain._train_pls_chunked()
-    for discretisation in ("exponential", "preconditioned"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            ttrain.resolve_tier(tbasis, tcost, "auto", discretisation)
