@@ -2,14 +2,16 @@
 ``projected_langevin_sampling_tpu`` for NVIDIA Hopper (H100).
 
 Ported so far: ARD and PLS grams, greedy inducing points, the orthonormal
-(KKL eigen-) basis, every closed-form cost (Gaussian, Bernoulli, smoothed
-Bernoulli, Poisson, Student-T, the bimodal mixture) with the MAP mean
-constant, Langevin training on the off, quadratic, spectral and general_fused
-tiers under the euler, exponential and preconditioned discretisations,
-Matheron prediction and tempering. Three kernels are written by hand for
-``sm_90a`` (``csrc/``): the whole-run spectral trainer, the whole-run
-general-cost trainer and the ARD gram. Entry points put their tensors on
-``cuda`` unless the caller passes CPU tensors or ``device="cpu"``.
+(KKL eigen-) and inducing-point bases, every closed-form cost (Gaussian,
+Bernoulli, smoothed Bernoulli, Poisson, Student-T, the bimodal mixture) with
+the MAP mean constant, Langevin training on the off, quadratic,
+quadratic_fused, spectral and general_fused tiers under the euler,
+exponential and preconditioned discretisations, the throughput path
+``langevin_steps``, Matheron prediction and tempering. Five kernels are
+written by hand for ``sm_90a`` (``csrc/``): the whole-run spectral,
+general-cost and quadratic trainers, the fused general update and the ARD
+gram. Entry points put their tensors on ``cuda`` unless the caller passes
+CPU tensors or ``device="cpu"``.
 
 TF32 is switched off for the whole process on import: TF32 on Hopper keeps
 about three decimal digits, the same fault as the TPU's bf16 operands inside
@@ -22,6 +24,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from projected_langevin_sampling_torch.models import link_functions  # noqa: E402
+from projected_langevin_sampling_torch.models.basis.inducing_point import (  # noqa: E402
+    InducingPointBasis,
+    build_inducing_point_basis,
+)
 from projected_langevin_sampling_torch.models.basis.orthonormal import (  # noqa: E402
     OrthonormalBasis,
     build_orthonormal_basis,
@@ -43,7 +49,7 @@ from projected_langevin_sampling_torch.models.mean_constant import fit_mean_cons
 from projected_langevin_sampling_torch.models.pls import PLS  # noqa: E402
 from projected_langevin_sampling_torch.models.temper.pls import TemperPLS  # noqa: E402
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel  # noqa: E402
-from projected_langevin_sampling_torch.training import train_pls  # noqa: E402
+from projected_langevin_sampling_torch.training import langevin_steps, train_pls  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -53,6 +59,8 @@ __all__ = [
     "PLSKernel",
     "OrthonormalBasis",
     "build_orthonormal_basis",
+    "InducingPointBasis",
+    "build_inducing_point_basis",
     "GaussianCost",
     "BernoulliCost",
     "SmoothedBernoulliCost",
@@ -64,6 +72,7 @@ __all__ = [
     "fit_mean_constant_map",
     "link_functions",
     "train_pls",
+    "langevin_steps",
     "TemperPLS",
     "ConditionalVarianceInducingPointSelector",
 ]

@@ -9,6 +9,7 @@ the same basis and cost, eigenvector signs included.
 from __future__ import annotations
 
 from projected_langevin_sampling_torch.models import link_functions
+from projected_langevin_sampling_torch.models.basis.inducing_point import InducingPointBasis
 from projected_langevin_sampling_torch.models.basis.orthonormal import OrthonormalBasis
 from projected_langevin_sampling_torch.models.costs import (
     BernoulliCost,
@@ -51,6 +52,22 @@ def orthonormal_basis_from_numpy(params: dict, device=None) -> OrthonormalBasis:
         base_gram_induce_train=tensor("base_gram_induce_train"),
         train_projection=tensor("train_projection"),
         scaling=params.get("scaling", "reference"),
+        mean_constant=float(params.get("mean_constant", 0.0)),
+    )
+
+
+def inducing_point_basis_from_numpy(params: dict, device=None) -> InducingPointBasis:
+    """``{"kernel": {...}, "x_induce", "y_induce", "gram_induce",
+    "base_gram_induce", "base_gram_induce_train", "inv_base_gram_induce",
+    "train_projection", "noise_factor"}`` plus optional ``"mean_constant"``."""
+    tensor = lambda name: as_tensor(params[name], device=device)  # noqa: E731
+    return InducingPointBasis(
+        kernel=pls_kernel_from_numpy(params["kernel"], device=device),
+        **{name: tensor(name) for name in (
+            "x_induce", "y_induce", "gram_induce", "base_gram_induce",
+            "base_gram_induce_train", "inv_base_gram_induce", "train_projection",
+            "noise_factor",
+        )},
         mean_constant=float(params.get("mean_constant", 0.0)),
     )
 

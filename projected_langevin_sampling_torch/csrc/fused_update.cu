@@ -1,0 +1,207 @@
+// B5: one fused Langevin update of the general tier for a closed-form cost,
+// for Hopper (sm_90a).
+//
+// Replaces the TPU kernel projected_langevin_sampling_tpu/ops/pallas/
+// fused_update.py:134 (fused_langevin_update / _fused_update_kernel, with the
+// dc closed forms of fused_update.py:46-75):
+//
+//   F  = P U + m0                        (N, M) x (M, J)
+//   dc = d cost / d F, per element: Gaussian-identity, Bernoulli-sigmoid
+//        (jitter clip), Poisson-square, Student-T-identity
+//   U' = U - eta (D^T dc + prior(U)) + sqrt(2 eta) noise
+//
+// with prior(U) = prior * U for a diagonal prior (the orthonormal basis,
+// 1 / lambda) or Prior U for a matrix (the inducing-point basis, M K^{-1}), D
+// = P for the orthonormal basis and k(X, Z) for the inducing-point basis. The
+// noise (S z for the inducing-point basis) comes in precomputed, as in the
+// JAX package. The mean shift m0 is 0 in the TPU kernel; the port's
+// langevin_steps passes the basis's mean constant.
+//
+// What bounds it on this card: operations. The two N products are 4 N M J
+// flops (1.02e10 at N = 5000, M = 512, J = 1000), a matrix prior adds
+// 2 M^2 J (5.2e8), and dc about 15-25 operations per element of F (about
+// 1e8). The bytes (P, D, U, the noise, U' and y) are about 27 MB, a twentieth
+// of the time of the operations at 3.35 TB/s.
+//
+// Design. The TPU kernel accumulates the N axis of its grid in order into one
+// output block. Blocks on the H100 run in no order and cannot do that without
+// atomics, so the update is two launches on one stream:
+//   dc_kernel      grid (J tiles, N tiles): F tile = P tile U tile over K = M
+//                  in shared memory, then dc in the epilogue into an (N, J)
+//                  scratch buffer (20 MB at the shape above, which stays in
+//                  the 50 MB L2); rows and columns past the edge are not
+//                  written;
+//   update_kernel  grid (J tiles, M tiles): D^T dc over K = N, plus Prior U
+//                  over K = M into the same accumulator for a matrix prior,
+//                  then the update with the prior, the noise and eta.
+// No atomics: a rerun is bitwise equal. D is read in either layout, (N, M)
+// (P) or its transpose stored (M, N) (k(Z, X)), so neither is copied.
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+
+#include "langevin_common.cuh"
+
+namespace {
+
+using plst::BK;
+using plst::BM;
+using plst::BN;
+using plst::THREADS;
+using plst::TM;
+using plst::TN;
+
+// the order of DC_KINDS in ops/cuda/fused_update.py
+enum DcKind { GAUSSIAN = 0, BERNOULLI_SIGMOID = 1, POISSON_SQUARE = 2, STUDENT_T = 3 };
+
+struct DcParams {
+  float p0, p1;  // observation noise; jitter; -; degrees of freedom and scale
+  float m0;      // prior mean constant: F = m0 + P U
+};
+
+// dc of one element, as the closed forms of fused_update.py:46-75 and the
+// port's cost classes.
+template <int KIND>
+__device__ __forceinline__ float dc_of(float f, float y, const DcParams& dp) {
+  if (KIND == GAUSSIAN) {
+    return (f - y) / dp.p0;
+  } else if (KIND == BERNOULLI_SIGMOID) {
+    // the link's clip with its dtype-aware floor: 1 - 1e-10 rounds to 1 in fp32
+    const float jit = fmaxf(dp.p0, FLT_EPSILON);
+    const float p = fminf(fmaxf(1.0f / (1.0f + expf(-f)), jit), 1.0f - jit);
+    return -y * (1.0f - p) + (1.0f - y) * p;
+  } else if (KIND == POISSON_SQUARE) {
+    return -2.0f * y / f + 2.0f * f;
+  } else {  // STUDENT_T
+    const float err = f - y;
+    return (dp.p0 + 1.0f) * err / (dp.p0 * (dp.p1 * dp.p1) + err * err);
+  }
+}
+
+// F = P U + m0 on one (N, J) tile, then dc.
+template <int KIND>
+__global__ void __launch_bounds__(THREADS)
+dc_kernel(const float* __restrict__ p, const float* __restrict__ u, const float* __restrict__ y,
+          float* __restrict__ dc, int n, int m, int j, DcParams dp) {
+  __shared__ float a_tile[BK][BM + 1];
+  __shared__ __align__(16) float b_tile[BK][BN];
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  float acc[TM][TN] = {};
+  plst::tile_product<false>(p, m, n, u, j, j, m, row0, col0, a_tile, b_tile, acc);
+  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + ty * TM + i;
+    if (r >= n) continue;
+    const float yr = y[r];
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int c = col0 + tx * TN + jj;
+      if (c < j) dc[(size_t)r * j + c] = dc_of<KIND>(acc[i][jj] + dp.m0, yr, dp);
+    }
+  }
+}
+
+// U' = U - eta (D^T dc + prior(U)) + root2eta noise on one (M, J) tile.
+// D_KMAJOR: d is D (N, M); else d is D^T stored (M, N).
+template <bool D_KMAJOR, bool PRIOR_DIAG>
+__global__ void __launch_bounds__(THREADS)
+update_kernel(const float* __restrict__ d, const float* __restrict__ dc,
+              const float* __restrict__ u, const float* __restrict__ prior,
+              const float* __restrict__ noise, float* __restrict__ u_out, int n, int m, int j,
+              float eta, float root2eta) {
+  __shared__ float a_tile[BK][BM + 1];
+  __shared__ __align__(16) float b_tile[BK][BN];
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  float acc[TM][TN] = {};
+  plst::tile_product<D_KMAJOR>(d, D_KMAJOR ? m : n, m, dc, j, j, n, row0, col0, a_tile, b_tile,
+                               acc);
+  if (!PRIOR_DIAG) {
+    plst::tile_product<false>(prior, m, m, u, j, j, m, row0, col0, a_tile, b_tile, acc);
+  }
+  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + ty * TM + i;
+    if (r >= m) continue;
+    const float pr = PRIOR_DIAG ? prior[r] : 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int c = col0 + tx * TN + jj;
+      if (c >= j) continue;
+      const size_t k = (size_t)r * j + c;
+      const float uv = u[k];
+      const float drift = PRIOR_DIAG ? acc[i][jj] + pr * uv : acc[i][jj];
+      u_out[k] = uv - eta * drift + root2eta * noise[k];
+    }
+  }
+}
+
+template <int KIND>
+cudaError_t launch_dc(dim3 grid, cudaStream_t stream, const float* p, const float* u,
+                      const float* y, float* dc, int n, int m, int j, const DcParams& dp) {
+  dc_kernel<KIND><<<grid, THREADS, 0, stream>>>(p, u, y, dc, n, m, j, dp);
+  return cudaGetLastError();
+}
+
+template <bool D_KMAJOR, bool PRIOR_DIAG>
+cudaError_t launch_update(dim3 grid, cudaStream_t stream, const float* d, const float* dc,
+                          const float* u, const float* prior, const float* noise, float* u_out,
+                          int n, int m, int j, float eta, float root2eta) {
+  update_kernel<D_KMAJOR, PRIOR_DIAG><<<grid, THREADS, 0, stream>>>(d, dc, u, prior, noise, u_out,
+                                                                    n, m, j, eta, root2eta);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// One update on `stream`, no synchronisation: 2 launches. d_kmajor: d is D
+// (N, M) row-major, else D^T (M, N) row-major. prior_diag: prior is (M,),
+// else (M, M). dc is an (N, J) scratch buffer. Returns a CUDA error code, 0
+// on success.
+extern "C" int plst_fused_update(const void* p, const void* d, const void* y, const void* u,
+                                 const void* prior, const void* noise, void* dc, void* u_out,
+                                 int n, int m, int j, int d_kmajor, int prior_diag, int kind,
+                                 float p0, float p1, float m0, float eta, void* stream_ptr) {
+  if (n <= 0 || m <= 0 || j <= 0 || kind < GAUSSIAN || kind > STUDENT_T) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const DcParams dp{p0, p1, m0};
+  const float* pp = static_cast<const float*>(p);
+  const float* up = static_cast<const float*>(u);
+  const float* yp = static_cast<const float*>(y);
+  float* dcp = static_cast<float*>(dc);
+  const dim3 grid_dc((j + BN - 1) / BN, (n + BM - 1) / BM);
+  cudaError_t err;
+  switch (kind) {
+    case GAUSSIAN: err = launch_dc<GAUSSIAN>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp); break;
+    case BERNOULLI_SIGMOID:
+      err = launch_dc<BERNOULLI_SIGMOID>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp);
+      break;
+    case POISSON_SQUARE:
+      err = launch_dc<POISSON_SQUARE>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp);
+      break;
+    default: err = launch_dc<STUDENT_T>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_up((j + BN - 1) / BN, (m + BM - 1) / BM);
+  const float* dp_ = static_cast<const float*>(d);
+  const float* prp = static_cast<const float*>(prior);
+  const float* np_ = static_cast<const float*>(noise);
+  float* outp = static_cast<float*>(u_out);
+  const float root2eta = sqrtf(2.0f * eta);
+  if (d_kmajor) {
+    err = prior_diag ? launch_update<true, true>(grid_up, stream, dp_, dcp, up, prp, np_, outp, n,
+                                                 m, j, eta, root2eta)
+                     : launch_update<true, false>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
+                                                  n, m, j, eta, root2eta);
+  } else {
+    err = prior_diag ? launch_update<false, true>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
+                                                  n, m, j, eta, root2eta)
+                     : launch_update<false, false>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
+                                                   n, m, j, eta, root2eta);
+  }
+  return (int)err;
+}

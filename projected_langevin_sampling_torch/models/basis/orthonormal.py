@@ -94,8 +94,13 @@ class OrthonormalBasis(PLSBasisMixin):
         prior = 0.5 * torch.sum(torch.square(particles) / self.eigenvalues[:, None], dim=0)
         return torch.mean(cost + prior)
 
-    def sample_update_noise(self, number_of_particles: int, generator: torch.Generator) -> torch.Tensor:
-        """eps ~ N(0, I_{M_k})."""
+    def sample_update_noise(
+        self, number_of_particles: int, generator: torch.Generator | None = None,
+        normals: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """eps ~ N(0, I_{M_k}); ``normals`` injects eps."""
+        if normals is not None:
+            return normals
         return torch.randn(
             (self.approximation_dimension, number_of_particles),
             generator=generator, dtype=self.dtype, device=self.device,

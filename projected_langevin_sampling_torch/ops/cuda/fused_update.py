@@ -1,0 +1,190 @@
+"""B5: one fused Langevin update of the general tier (``csrc/fused_update.cu``)
+and its plain version.
+
+Replaces ``projected_langevin_sampling_tpu/ops/pallas/fused_update.py``
+(``fused_langevin_update`` and ``dc_fn_for_cost``):
+
+    F  = P U + m0,   dc = d cost / d F (one of DC_KINDS, closed form)
+    U' = U - eta (D^T dc + prior(U)) + sqrt(2 eta) noise
+
+with a diagonal prior (M,) multiplying U (the orthonormal basis: 1 / lambda,
+D = P) or a matrix prior (M, M) applied to U (the inducing-point basis:
+M K^{-1}, D = k(X, Z)). The noise is precomputed (S z for the inducing-point
+basis), as in the JAX package. ``mean_shift`` = 0 is exactly the TPU
+kernel's function; ``training.langevin_steps`` passes the basis's mean
+constant.
+
+Bound on the H100: operations, 4 N M J flops of the two N products (plus
+2 M^2 J for a matrix prior) and the dc closed form per element of F. The
+kernel is two launches on the current stream (F with the dc epilogue into an
+(N, J) scratch buffer, then D^T dc with the update), no atomics; D is read in
+whichever of the layouts (N, M) or its transpose (M, N) it is stored in.
+
+:func:`fused_update` launches the kernel for CUDA tensors, in fp32 with a
+cast at entry and exit, and runs :func:`fused_update_reference` only for
+tensors that lie on the CPU. ``fused_update.launches`` counts launched
+updates. :func:`dc_kind_for_cost` decides from the cost's type alone which
+costs have a closed form here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from projected_langevin_sampling_torch.models.costs import (
+    BernoulliCost,
+    GaussianCost,
+    PoissonCost,
+    StudentTCost,
+)
+from projected_langevin_sampling_torch.models.link_functions import (
+    IdentityLinkFunction,
+    SigmoidLinkFunction,
+    SquareLinkFunction,
+)
+from projected_langevin_sampling_torch.ops.cuda import build
+
+# the order of the kernel's DcKind enum
+DC_KINDS = ("gaussian", "bernoulli_sigmoid", "poisson_square", "student_t")
+# fp32 operations per element of F for the dc closed form (a precise expf
+# counted as 8, a divide as 8), for the bound in PERF.md and chip_smoke.py
+OPS_PER_ELEMENT = {
+    "gaussian": 1 + 8,
+    "bernoulli_sigmoid": 8 + 2 + 8 + 2 + 6,
+    "poisson_square": 2 + 8 + 3,
+    "student_t": 3 + 8 + 4,
+}
+# per element of U: the prior term, eta, the noise and the update
+OPS_PER_UPDATE_ELEMENT = 6
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
+    ctypes.c_void_p,
+]
+
+
+def step_operations(kind: str, n: int, m: int, j: int, prior_is_diag: bool) -> int:
+    """fp32 operations of one update, for the bound."""
+    prior = 0 if prior_is_diag else 2 * m * m * j
+    return 4 * n * m * j + prior + OPS_PER_ELEMENT[kind] * n * j + OPS_PER_UPDATE_ELEMENT * m * j
+
+
+def dc_kind_for_cost(cost):
+    """``(kind, (p0, p1))`` of the cost's closed form in the kernel, or None
+    (``fused_update.py:206-237`` of the JAX package): Gaussian-identity
+    (observation noise), Bernoulli-sigmoid (the link's jitter),
+    Poisson-square, Student-T-identity (degrees of freedom, scale). Every
+    other cost and link, the smoothed Bernoulli, the probit link and the
+    mixture among them, has none. A rule on types, never a failed launch."""
+    link = cost.link_function
+    if isinstance(cost, GaussianCost) and isinstance(link, IdentityLinkFunction):
+        return "gaussian", (float(cost.observation_noise), 0.0)
+    if isinstance(cost, BernoulliCost) and isinstance(link, SigmoidLinkFunction):
+        return "bernoulli_sigmoid", (float(link.jitter), 0.0)
+    if isinstance(cost, PoissonCost) and isinstance(link, SquareLinkFunction):
+        return "poisson_square", (0.0, 0.0)
+    if isinstance(cost, StudentTCost) and isinstance(link, IdentityLinkFunction):
+        return "student_t", (float(cost.degrees_of_freedom), float(cost.scale))
+    return None
+
+
+def cost_derivative(kind: str, f: torch.Tensor, y: torch.Tensor, params) -> torch.Tensor:
+    """dc (N, J) of a kind, the kernel's closed forms in the input's dtype;
+    ``y`` is (N, 1). The Bernoulli clip floor is max(jitter, dtype eps), the
+    link's."""
+    p0, p1 = params
+    if kind == "gaussian":
+        return (f - y) / p0
+    if kind == "bernoulli_sigmoid":
+        jit = max(p0, torch.finfo(f.dtype).eps)
+        p = torch.clamp(torch.sigmoid(f), jit, 1.0 - jit)
+        return -y * (1.0 - p) + (1.0 - y) * p
+    if kind == "poisson_square":
+        return -2.0 * y / f + 2.0 * f
+    if kind == "student_t":
+        err = f - y
+        return (p0 + 1.0) * err / (p0 * (p1 * p1) + torch.square(err))
+    raise ValueError(f"Unknown dc kind {kind!r}")
+
+
+def fused_update_reference(
+    p: torch.Tensor,
+    d: torch.Tensor,
+    y: torch.Tensor,
+    u: torch.Tensor,
+    prior: torch.Tensor,
+    noise: torch.Tensor,
+    kind: str,
+    *,
+    eta: float,
+    params=(0.0, 0.0),
+    mean_shift: float = 0.0,
+) -> torch.Tensor:
+    """The kernel's math in plain PyTorch, in the input's dtype."""
+    dc = cost_derivative(kind, p @ u + mean_shift, y[:, None], params)
+    prior_drift = prior[:, None] * u if prior.ndim == 1 else prior @ u
+    return u - eta * (d.T @ dc + prior_drift) + math.sqrt(2.0 * eta) * noise
+
+
+def fused_update(
+    p: torch.Tensor,
+    d: torch.Tensor,
+    y: torch.Tensor,
+    u: torch.Tensor,
+    prior: torch.Tensor,
+    noise: torch.Tensor,
+    kind: str,
+    *,
+    eta: float,
+    params=(0.0, 0.0),
+    mean_shift: float = 0.0,
+) -> torch.Tensor:
+    """One update U' in ``u``'s dtype. ``p`` and ``d`` are (N, M) (``d`` may
+    be the transpose of an (M, N) tensor, which is read in place); ``prior``
+    is (M,) for a diagonal prior or (M, M); ``noise`` (M, J) is added as it
+    is, times sqrt(2 eta). On CUDA tensors the kernel runs in fp32; on CPU
+    tensors the plain version."""
+    if kind not in DC_KINDS:
+        raise ValueError(f"fused_update: unknown dc kind {kind!r}")
+    params = tuple(float(v) for v in params)
+    if u.device.type == "cpu":
+        return fused_update_reference(p, d, y, u, prior, noise, kind, eta=eta, params=params,
+                                      mean_shift=mean_shift)
+    if u.device.type != "cuda":
+        raise ValueError(f"fused_update: particles on {u.device}")
+    if p.ndim != 2 or u.ndim != 2 or p.shape[1] != u.shape[0]:
+        raise ValueError(f"fused_update: P {tuple(p.shape)} and U {tuple(u.shape)}")
+    n, m = p.shape
+    j = u.shape[1]
+    prior_shape = (m,) if prior.ndim == 1 else (m, m)
+    for name, t, shape in (("D", d, (n, m)), ("y", y, (n,)), ("prior", prior, prior_shape),
+                           ("noise", noise, (m, j))):
+        if t.shape != shape or t.device != u.device:
+            raise ValueError(f"fused_update: {name} of shape {tuple(t.shape)} on {t.device}")
+    if max(n * j, n * m, m * j) >= 2**31:
+        raise ValueError("fused_update: a matrix has 2^31 or more elements")
+    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    # D in place when it or its transpose is contiguous fp32 (k(Z, X).T)
+    d_kmajor = not (d.dtype == torch.float32 and d.T.is_contiguous() and not d.is_contiguous())
+    d32 = f32(d) if d_kmajor else d.T
+    p32, y32, u32, prior32, noise32 = (f32(t) for t in (p, y, u, prior, noise))
+    with torch.cuda.device(u.device):
+        dc = torch.empty((n, j), dtype=torch.float32, device=u.device)
+        out = torch.empty((m, j), dtype=torch.float32, device=u.device)
+        lib = build.load("fused_update")
+        fn = lib.plst_fused_update
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        err = fn(
+            p32.data_ptr(), d32.data_ptr(), y32.data_ptr(), u32.data_ptr(), prior32.data_ptr(),
+            noise32.data_ptr(), dc.data_ptr(), out.data_ptr(), n, m, j, int(d_kmajor),
+            int(prior.ndim == 1), DC_KINDS.index(kind), params[0], params[1],
+            float(mean_shift), float(eta), torch.cuda.current_stream().cuda_stream,
+        )
+        build.check(err, "fused_update kernel")
+        fused_update.launches += 1
+    return out.to(u.dtype)
+
+
+fused_update.launches = 0

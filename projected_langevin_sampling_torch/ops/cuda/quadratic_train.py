@@ -1,0 +1,195 @@
+"""B4: the whole-run quadratic-tier trainer (``csrc/quadratic_train.cu``) and
+its plain version.
+
+Replaces ``projected_langevin_sampling_tpu/ops/pallas/quadratic_train.py``
+(``quadratic_train_fused``). For the Gaussian cost with the identity link, in
+M space, for T steps:
+
+    U' = U - eta (A U - b) + sqrt(2 eta) S eps
+    energy_t = mean_j(0.5 U'^T E U' - e_bias . U') + e_const
+
+with the reference's early stopping: the stop step's update is applied and
+its energy written but not recorded, the particles freeze after it and later
+energies are NaN. ``shared`` (the orthonormal basis: E == A, S == I) carries
+V = A U, so a step is one product; otherwise (the inducing-point basis, S its
+noise factor) three.
+
+Bound on the H100: operations, 2 M^2 J flops per product plus about 41 per
+element of U (Philox, Box-Muller, the update, the energy); A, E, S and U stay
+in L2. The kernel queues 3 launches per shared step and 4 per non-shared step
+on the current stream (3 with ``zero_noise``) and never synchronises inside
+the run; the stopper state lives on the card. Operands and sums are fp32 on
+the CUDA cores, like B3.
+
+:func:`quadratic_train` launches the kernel for CUDA tensors, in fp32 with a
+cast at entry and exit, and runs :func:`quadratic_train_reference` only for
+tensors that lie on the CPU. ``quadratic_train.launches`` counts whole runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.utils.early_stopper import (
+    replay_early_stopper,
+    run_with_stopper,
+)
+
+# fp32 operations per element of U and step besides the products, for the
+# bound in PERF.md and chip_smoke.py: Philox and Box-Muller (31, as B1), the
+# update (4) and the energy term (6)
+OPS_PER_ELEMENT_STEP = 31 + 4 + 6
+
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong, ctypes.c_int,
+    ctypes.c_void_p,
+]
+
+
+def step_operations(m: int, j: int, shared: bool) -> int:
+    """fp32 operations of one training step, for the bound."""
+    products = 1 if shared else 3
+    return products * 2 * m * m * j + OPS_PER_ELEMENT_STEP * m * j
+
+
+def quadratic_train_reference(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    energy_matrix: torch.Tensor,
+    energy_bias: torch.Tensor,
+    noise_factor: torch.Tensor | None,
+    u0: torch.Tensor,
+    *,
+    eta: float,
+    patience: float,
+    e_const,
+    num_steps: int,
+    shared: bool,
+    zero_noise: bool = False,
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """The plain PyTorch loop over T doing the kernel's math in the input's
+    dtype, with the early-stopper carry.
+
+    Noise per step: zeros with ``zero_noise``; else ``S @ noise[t]`` for
+    injected standard normals ``noise`` (T, M, J), the z of the basis's
+    update noise S z (S = I when ``noise_factor`` is None); else normals from
+    ``generator``. Returns ``(u, energies, recorded, steps_run)``."""
+    dtype, device = u0.dtype, u0.device
+    root2eta = math.sqrt(2.0 * eta)
+    b_col = b[:, None]
+    mat = a if shared else energy_matrix
+
+    def step(t, state):
+        # shared: v carries A u, one product serves this drift and the last energy
+        u, v = state
+        drift = (v if shared else a @ u) - b_col
+        u_new = u - eta * drift
+        if not zero_noise:
+            z = noise[t] if noise is not None else torch.randn(
+                u.shape, generator=generator, dtype=dtype, device=device
+            )
+            eps = z if noise_factor is None else noise_factor @ z
+            u_new = u_new + root2eta * eps
+        v_new = mat @ u_new
+        energy_j = 0.5 * torch.sum(u_new * v_new, dim=0) - energy_bias @ u_new + e_const
+        return (u_new, v_new), torch.mean(energy_j)
+
+    v0 = a @ u0 if shared else torch.zeros_like(u0)
+    (u, _), energies, recorded, steps_run = run_with_stopper(
+        step, (u0, v0), num_steps, eta, patience, dtype, device
+    )
+    return u, energies, recorded, steps_run
+
+
+def quadratic_train(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    energy_matrix: torch.Tensor,
+    energy_bias: torch.Tensor,
+    noise_factor: torch.Tensor | None,
+    u0: torch.Tensor,
+    *,
+    eta: float,
+    patience: float,
+    e_const,
+    num_steps: int,
+    shared: bool,
+    seed: int = 0,
+    zero_noise: bool = False,
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Run ``num_steps`` quadratic-tier steps; returns ``(u, energies,
+    recorded, steps_run)`` in ``u0``'s dtype.
+
+    On CUDA tensors the kernel runs in fp32 with Philox noise keyed on
+    ``seed``; injected ``noise`` is refused there and ``generator`` serves only
+    the plain loop. ``zero_noise`` switches the noise off for exact comparison
+    with the plain version. On CPU tensors the plain loop runs."""
+    if u0.device.type == "cpu":
+        return quadratic_train_reference(
+            a, b, energy_matrix, energy_bias, noise_factor, u0, eta=eta, patience=patience,
+            e_const=e_const, num_steps=num_steps, shared=shared, zero_noise=zero_noise,
+            noise=noise, generator=generator,
+        )
+    if u0.device.type != "cuda":
+        raise ValueError(f"quadratic_train: particles on {u0.device}")
+    if noise is not None:
+        raise ValueError("quadratic_train: the kernel draws its own Philox noise; "
+                         "injected noise is for CPU tensors")
+    if u0.ndim != 2:
+        raise ValueError(f"quadratic_train: particles of shape {tuple(u0.shape)}")
+    m, j = u0.shape
+    if shared and noise_factor is not None:
+        raise ValueError("quadratic_train: a shared system has iid noise (noise_factor None)")
+    if not shared and noise_factor is None and not zero_noise:
+        raise ValueError("quadratic_train: a non-shared system needs its noise factor")
+    for name, t, shape in (("A", a, (m, m)), ("E", energy_matrix, (m, m)), ("b", b, (m,)),
+                           ("e_bias", energy_bias, (m,)), ("S", noise_factor, (m, m))):
+        if t is not None and (t.shape != shape or t.device != u0.device):
+            raise ValueError(f"quadratic_train: {name} of shape {tuple(t.shape)} on {t.device}")
+    if not 0 <= int(seed) < 2**64:
+        raise ValueError(f"quadratic_train: seed {seed} outside [0, 2^64)")
+    if m * j >= 2**31:
+        raise ValueError("quadratic_train: the particles have 2^31 or more elements")
+    dtype, device = u0.dtype, u0.device
+    if num_steps == 0:
+        empty = torch.zeros(0, dtype=dtype, device=device)
+        return u0.clone(), empty, empty.bool(), torch.tensor(0, dtype=torch.int32)
+    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    a32, b32, e32, eb32 = f32(a), f32(b), f32(energy_matrix), f32(energy_bias)
+    s32 = a32 if noise_factor is None else f32(noise_factor)  # unread when shared or noiseless
+    tiles = -(-m // 64) * -(-j // 64)  # BM = BN = 64
+    with torch.cuda.device(device):
+        u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
+        u_b = torch.empty_like(u_a)
+        v = torch.empty_like(u_a)
+        eps = torch.empty_like(u_a)
+        partials = torch.empty(tiles, dtype=torch.float64, device=device)
+        energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
+        state = torch.empty(4, dtype=torch.int32, device=device)
+        lib = build.load("quadratic_train")
+        fn = lib.plst_quadratic_train
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        err = fn(
+            a32.data_ptr(), e32.data_ptr(), s32.data_ptr(), b32.data_ptr(), eb32.data_ptr(),
+            u_a.data_ptr(), u_b.data_ptr(), v.data_ptr(), eps.data_ptr(), partials.data_ptr(),
+            energies.data_ptr(), state.data_ptr(), m, j, int(num_steps), int(shared),
+            float(eta), float(patience), float(e_const), int(seed), int(zero_noise),
+            torch.cuda.current_stream().cuda_stream,
+        )
+        build.check(err, "quadratic_train kernel")
+        quadratic_train.launches += 1
+        u = u_a if num_steps % 2 == 0 else u_b
+        energies = energies.to(dtype)
+        recorded, steps_run = replay_early_stopper(energies, eta, patience)
+    return u.to(dtype), energies, recorded, steps_run
+
+
+quadratic_train.launches = 0

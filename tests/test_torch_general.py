@@ -28,6 +28,7 @@ from projected_langevin_sampling_tpu.training import (
     general_fused_cost_spec,
     spectral_system_host,
 )
+from projected_langevin_sampling_tpu.training import ipb_w_space_view as j_ipb_w_space_view
 from projected_langevin_sampling_tpu.utils.prng import as_key
 from tests.torch_parity import (
     ELIGIBLE,
@@ -37,6 +38,7 @@ from tests.torch_parity import (
     update_noise,
     carried,
     carried_cost,
+    ipb_model,
     jax_cost,
     jax_onb,
     to_np,
@@ -151,15 +153,39 @@ def test_ineligible_costs_resolve_to_off_and_bad_pairs_raise():
 
 
 def test_inducing_point_basis_names_slice_3():
-    class InducingPointBasis:  # stands for the JAX package's IPB, not ported yet
+    """A basis type the port does not know raises; the port's IPB trains
+    under general_fused and preconditioned through its W-space view, as the
+    JAX package does."""
+
+    class UnknownBasis:  # stands for a basis the port has no training path for
         pass
 
-    _, jcost, _, tcost, u0 = onb_model("bernoulli")
-    pls = pt.PLS(InducingPointBasis(), tcost)
+    _, _, _, tcost, u0 = onb_model("bernoulli")
     for fast_path in ("general_fused", "off"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            pt.train_pls(pls, torch.as_tensor(u0), 3, STEP_SIZE, fast_path=fast_path,
-                         discretisation="preconditioned")
+        with pytest.raises(TypeError, match="UnknownBasis"):
+            pt.train_pls(pt.PLS(UnknownBasis(), tcost), torch.as_tensor(u0), 3, STEP_SIZE,
+                         fast_path=fast_path, discretisation="preconditioned")
+
+    jbasis, jcost, tbasis, tcost, u0 = ipb_model("bernoulli")
+    for fast_path, discretisation in (("general_fused", "euler"),
+                                      ("general_fused", "preconditioned"),
+                                      ("off", "preconditioned")):
+        assert ttrain.needs_w_space_reroute(tbasis, fast_path, discretisation)
+        t_u, t_e = pt.train_pls(pt.PLS(tbasis, tcost), torch.as_tensor(u0), 30, STEP_SIZE,
+                                generator=7, fast_path=fast_path, discretisation=discretisation)
+        assert t_u.shape == u0.shape and len(t_e) == 30 and np.isfinite(t_e).all()
+    # the W-space chain with JAX's normals, mapped back by U = S W
+    view, s_mat, s_inv = ttrain.ipb_w_space_view(tbasis)
+    assert ttrain.resolve_tier(view, tcost, "general_fused", "preconditioned") == "general_fused"
+    j_view, j_s, j_s_inv = j_ipb_w_space_view(jbasis)
+    expected = _train_pls_scan(j_view, jcost, j_s_inv @ jnp.asarray(u0), as_key(123), STEP_SIZE,
+                               np.inf, STEPS, "off", None, "preconditioned")
+    got = ttrain._train_pls_loop(view, tcost, s_inv @ torch.as_tensor(u0), STEP_SIZE, np.inf,
+                                 STEPS, "off", noise=torch.as_tensor(update_noise(jbasis)),
+                                 discretisation="preconditioned")
+    np.testing.assert_allclose(to_np(s_mat @ got.particles), np.asarray(j_s @ expected.particles),
+                               rtol=RTOL, atol=1e-12)
+    np.testing.assert_allclose(to_np(got.energies), np.asarray(expected.energies), rtol=RTOL)
 
 
 def test_train_pls_general_fused_on_cpu_runs_the_plain_version():

@@ -38,5 +38,6 @@ def test_port_has_the_slice_modules():
                    "ops/cuda/general_train.py", "models/mean_constant.py",
                    "models/costs/bernoulli.py", "models/costs/poisson.py",
                    "models/costs/student_t.py", "models/costs/multimodal.py",
-                   "models/costs/smoothed_bernoulli.py"):
+                   "models/costs/smoothed_bernoulli.py", "models/basis/inducing_point.py",
+                   "ops/cuda/quadratic_train.py", "ops/cuda/fused_update.py"):
         assert f"projected_langevin_sampling_torch/{module}" in names

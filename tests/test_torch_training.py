@@ -20,7 +20,7 @@ from projected_langevin_sampling_tpu.models.pls import PLS as JPLS
 from projected_langevin_sampling_tpu.training import _train_pls_scan, spectral_system_host
 from projected_langevin_sampling_tpu.training import train_pls as j_train_pls
 from projected_langevin_sampling_tpu.utils.prng import as_key
-from tests.torch_parity import carried, jax_onb, to_np
+from tests.torch_parity import carried, carried_ipb, ipb_model, jax_ipb, jax_onb, to_np
 
 J, STEPS, STEP_SIZE = 8, 120, 1e-3
 RTOL = 1e-9
@@ -87,7 +87,13 @@ def test_tier_resolution():
         assert ttrain.resolve_tier(tbasis, tcost, "off", discretisation) == "off"
     assert ttrain.resolve_tier(tbasis, tcost, "auto", "exponential") == "off"
     assert ttrain.resolve_tier(tbasis, tcost, "auto", "preconditioned") == "spectral"
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ttrain.resolve_fast_path(tbasis, tcost, "quadratic_fused")
+    # quadratic_fused resolves on the IPB + Gaussian model and refuses a
+    # non-Gaussian cost, as the JAX package's rule (training.py:261-264)
+    ibasis, icost = carried_ipb(*jax_ipb()[:2])
+    assert ttrain.resolve_fast_path(ibasis, icost, "quadratic_fused") == "quadratic_fused"
+    assert ttrain.resolve_fast_path(tbasis, tcost, "quadratic_fused") == "quadratic_fused"
+    _, _, ibasis_b, bernoulli, _ = ipb_model("bernoulli")
+    with pytest.raises(ValueError, match="GaussianCost"):
+        ttrain.resolve_fast_path(ibasis_b, bernoulli, "quadratic_fused")
     with pytest.raises(NotImplementedError, match="slice 5"):
         ttrain._train_pls_chunked()

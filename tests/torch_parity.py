@@ -1,6 +1,7 @@
 """Shared set-up for the parity tests of the PyTorch port against the JAX
-package: small ONB models built by the JAX package and carried across with
-``projected_langevin_sampling_torch.convert``, on the CPU in fp64."""
+package: small ONB and IPB models built by the JAX package and carried
+across with ``projected_langevin_sampling_torch.convert``, on the CPU in
+fp64."""
 
 from __future__ import annotations
 
@@ -10,7 +11,10 @@ import numpy as np
 import torch
 
 from projected_langevin_sampling_torch import convert
-from projected_langevin_sampling_tpu.models.basis import build_orthonormal_basis
+from projected_langevin_sampling_tpu.models.basis import (
+    build_inducing_point_basis,
+    build_orthonormal_basis,
+)
 from projected_langevin_sampling_tpu.models import costs as jcosts
 from projected_langevin_sampling_tpu.models.costs import GaussianCost
 from projected_langevin_sampling_tpu.models.link_functions import ProbitLinkFunction
@@ -54,6 +58,23 @@ def jax_onb(n=64, m=16, lengthscale=0.4, observation_noise=0.1, seed=0, **build_
     return basis, cost, x, y
 
 
+def jax_ipb(n=64, m=12, lengthscale=0.4, observation_noise=0.1, seed=0, mean_constant=0.0):
+    """A JAX IPB basis (Z = linspace(-2, 2, m), y(Z) = sin(2Z)) and Gaussian
+    cost on the data of :func:`jax_onb`; returns (basis, cost, x, y)."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-2, 2, (n, 1)), axis=0)
+    y = np.sin(2 * x[:, 0]) + 0.1 * rng.normal(size=n)
+    kernel = PLSKernel(
+        base_kernel=ARDKernel(jnp.asarray([lengthscale]), jnp.asarray(1.0)),
+        approximation_samples=jnp.asarray(x),
+    )
+    z = np.linspace(-2, 2, m)
+    basis = build_inducing_point_basis(kernel, jnp.asarray(z[:, None]), jnp.asarray(np.sin(2 * z)),
+                                       jnp.asarray(x), mean_constant=mean_constant)
+    cost = GaussianCost(y_train=jnp.asarray(y), observation_noise=jnp.asarray(observation_noise))
+    return basis, cost, x, y
+
+
 def jax_cost(name: str, x: np.ndarray, seed: int = 1):
     """A JAX cost of kind ``name`` on the targets of f = sin(2x):
     "gaussian", "bernoulli", "bernoulli_probit", "smoothed" (smoothing std
@@ -88,13 +109,7 @@ def jax_cost(name: str, x: np.ndarray, seed: int = 1):
 def basis_params(basis) -> dict:
     """The JAX ONB basis as a dict of numpy arrays for ``convert``."""
     return {
-        "kernel": {
-            "base_kernel": {
-                "lengthscales": to_np(basis.kernel.base_kernel.lengthscales),
-                "outputscale": to_np(basis.kernel.base_kernel.outputscale),
-            },
-            "approximation_samples": to_np(basis.kernel.approximation_samples),
-        },
+        "kernel": basis_params_kernel(basis.kernel),
         "x_induce": to_np(basis.x_induce),
         "eigenvalues": to_np(basis.eigenvalues),
         "scaled_eigenvectors": to_np(basis.scaled_eigenvectors),
@@ -102,6 +117,30 @@ def basis_params(basis) -> dict:
         "train_projection": to_np(basis.train_projection),
         "scaling": basis.scaling,
         "mean_constant": basis.mean_constant,
+    }
+
+
+IPB_FIELDS = ("x_induce", "y_induce", "gram_induce", "base_gram_induce",
+              "base_gram_induce_train", "inv_base_gram_induce", "train_projection",
+              "noise_factor")
+
+
+def ipb_params(basis) -> dict:
+    """The JAX IPB basis as a dict of numpy arrays for ``convert``."""
+    params = {name: to_np(getattr(basis, name)) for name in IPB_FIELDS}
+    params["kernel"] = basis_params_kernel(basis.kernel)
+    params["mean_constant"] = basis.mean_constant
+    return params
+
+
+def basis_params_kernel(kernel) -> dict:
+    """A JAX PLS kernel as a dict of numpy arrays for ``convert``."""
+    return {
+        "base_kernel": {
+            "lengthscales": to_np(kernel.base_kernel.lengthscales),
+            "outputscale": to_np(kernel.base_kernel.outputscale),
+        },
+        "approximation_samples": to_np(kernel.approximation_samples),
     }
 
 
@@ -152,6 +191,11 @@ def carried(basis, cost):
     return convert.orthonormal_basis_from_numpy(basis_params(basis), device=CPU), carried_cost(cost)
 
 
+def carried_ipb(basis, cost):
+    """The port's IPB and cost carried over from the JAX objects, on the CPU."""
+    return convert.inducing_point_basis_from_numpy(ipb_params(basis), device=CPU), carried_cost(cost)
+
+
 def onb_model(name):
     """JAX and port models of cost ``name`` and the initial particles; the
     Poisson square link trains at a mean constant of 2 from small particles,
@@ -166,7 +210,22 @@ def onb_model(name):
     return jbasis, jcost, tbasis, tcost, u0
 
 
-def update_noise(jbasis, steps=STEPS):
-    """The standard normals the JAX scan draws from its per-step keys."""
-    keys = jax.random.split(as_key(123), steps)
-    return np.stack([np.asarray(jbasis.sample_update_noise(J, k)) for k in keys])
+def ipb_model(name, mean_constant=0.0):
+    """JAX and port IPB models of cost ``name`` and the initial particles,
+    as :func:`onb_model`."""
+    jbasis, _, x, _ = jax_ipb(mean_constant=mean_constant)
+    jcost = jax_cost(name, x)
+    u0 = np.array(jbasis.initialise_particles(J, key=0))
+    if name == "poisson":
+        jbasis = jbasis.replace(mean_constant=2.0)
+        u0 = 0.2 * u0
+    tbasis, tcost = carried_ipb(jbasis, jcost)
+    return jbasis, jcost, tbasis, tcost, u0
+
+
+def update_noise(jbasis, steps=STEPS, seed=123):
+    """The standard normals z the JAX scan draws from its per-step keys (the
+    update noise itself on the ONB, the z of S z on the IPB)."""
+    keys = jax.random.split(as_key(seed), steps)
+    shape = (jbasis.approximation_dimension, J)
+    return np.stack([np.asarray(jax.random.normal(k, shape, dtype=jbasis.dtype)) for k in keys])
