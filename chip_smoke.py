@@ -19,6 +19,12 @@ each run with the launch counters set to 0 just before it and read just after:
   general kernel (B3), and 2000 steps of ``langevin_steps`` on the Euler
   general body (B5 once per step).
 
+Phase 1 also reports whether the built B3 and B5 libraries hold tensor-core
+instructions (HMMA in ``cuobjdump -sass``) and the tiling of their product
+(``csrc/tc_product.cuh``); phases 6 and 9 split B3's and B5's device time by
+kernel, give their bound on the tensor cores beside the fp32 SIMT bound of
+earlier runs, and phase 9 B5's host time per call.
+
 Any failure raises; there is no CPU fallback.
 
 Run: python3 chip_smoke.py        (needs one CUDA card, nvcc under CUDA_HOME)
@@ -34,6 +40,7 @@ import json
 import math
 import os
 import runpy
+import shutil
 import subprocess
 import sys
 import time
@@ -44,10 +51,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# H100 SXM peaks (NVIDIA data sheet, full 700 W): HBM bytes/s and fp32
-# operations/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, full 700 W): HBM bytes/s, fp32
+# operations/s outside the tensor cores, and dense TF32 flops/s on them
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 N, M, J = 5000, 512, 1000  # bench.py's headline shape
 STEPS, STEP_SIZE, N_TEST, CHUNK = 20_000, 1e-4, 4096, 256
 
@@ -75,13 +83,13 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_device_ms(fn, kernel_name, reps: int, warmup: bool = True):
-    """Device milliseconds per call of the kernels whose names contain
-    ``kernel_name`` (a name or a tuple of names), from the profiler's CUDA
-    activity; None if the trace shows no device time."""
+def profiled_device_split(fn, kernel_names, reps: int, warmup: bool = True):
+    """Device milliseconds per call of each of ``kernel_names``, the kernels
+    whose names contain it (the first name that matches takes a kernel), from
+    the profiler's CUDA activity; a name the trace shows no time for gets
+    None."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = (kernel_name,) if isinstance(kernel_name, str) else tuple(kernel_name)
     if warmup:
         fn()
     torch.cuda.synchronize()
@@ -89,12 +97,59 @@ def profiled_device_ms(fn, kernel_name, reps: int, warmup: bool = True):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-        for e in prof.key_averages()
-        if any(name in e.key for name in names)
-    )
-    return total_us / 1e3 / reps if total_us > 0 else None
+    total_us = dict.fromkeys(kernel_names, 0.0)
+    for e in prof.key_averages():
+        name = next((k for k in kernel_names if k in e.key), None)
+        if name is not None:
+            total_us[name] += getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+    return {k: (us / 1e3 / reps if us > 0 else None) for k, us in total_us.items()}
+
+
+def profiled_device_ms(fn, kernel_name, reps: int, warmup: bool = True):
+    """Device milliseconds per call of the kernels whose names contain
+    ``kernel_name`` (a name or a tuple of names); None if the trace shows no
+    device time."""
+    names = (kernel_name,) if isinstance(kernel_name, str) else tuple(kernel_name)
+    split = profiled_device_split(fn, names, reps, warmup)
+    return sum_measured(split)
+
+
+def sum_measured(split):
+    """The sum of a profiled split, None if no part was measured."""
+    parts = [v for v in split.values() if v is not None]
+    return sum(parts) if parts else None
+
+
+def split_text(split, per=1):
+    """``name a ms, ...`` of a profiled split, each divided by ``per``."""
+    return ", ".join(f"{k} {'not measured' if v is None else f'{v / per:.4f} ms'}"
+                     for k, v in split.items())
+
+
+def tc_bound(products_flops, elementwise_ops, nbytes):
+    """The least time in ms of work whose fp32 products run as three TF32
+    products on the tensor cores: the larger of those at 495 TFLOP/s, the
+    elementwise operations at 67 TFLOP/s on the CUDA cores, and the bytes at
+    3.35 TB/s; with the name of the larger term."""
+    terms = {"tf32 products": 1e3 * 3 * products_flops / TF32_OPS_PER_S,
+             "fp32 elementwise": 1e3 * elementwise_ops / FP32_OPS_PER_S,
+             "bytes": 1e3 * nbytes / HBM_BYTES_PER_S}
+    term = max(terms, key=terms.get)
+    return terms[term], term
+
+
+def sass_hmma_count(lib_path):
+    """HMMA instructions in a built library's SASS (cuobjdump -sass), None
+    where the toolkit has no cuobjdump."""
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    tool = os.path.join(cuda_home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    return sum(line.count("HMMA") for line in out.splitlines())
 
 
 def headline_inputs(dtype):
@@ -348,7 +403,7 @@ N6, M6, J6, T6, ETA6 = 1000, 128, 256, 200, 1e-3  # the shape of the comparisons
 # kernel against plain version, both fp32 with sums in another order: 200
 # contracting steps keep the difference near fp32 rounding of |W|
 W_TOL, E_RTOL = 1e-3, 1e-5
-B3_KERNELS = ("forward_kernel", "update_kernel", "stop_kernel", "init_state_kernel")
+B3_KERNELS = ("forward_kernel", "update_kernel", "stop_kernel", "init_run_kernel")
 
 
 def synthetic_general(kind, n=N6, m_k=M6, j=J6, seed=0):
@@ -530,20 +585,24 @@ def phase_general(pt, gen):
     noisy = dict(headline, seed=1)
     res["ms"] = cuda_ms(lambda: gen.general_train(**noisy), reps=3)
     res["plain_ms"] = cuda_ms(lambda: gen.general_train_reference(**headline), reps=1)
-    dev_ms = profiled_device_ms(lambda: gen.general_train(**noisy), B3_KERNELS, 1)
+    split = profiled_device_split(lambda: gen.general_train(**noisy), B3_KERNELS, 1)
+    dev_ms = sum_measured(split)
     p = basis.train_projection
     dc = torch.randn((N, J), device="cuda")
     matmul_ms = cuda_ms(lambda: (p @ u0, p.T @ dc), reps=20, warmup=2)
-    bound_ops_ms = 1e3 * T6 * gen.step_operations(kind, N, M, J) / FP32_OPS_PER_S
-    bound_bytes_ms = 1e3 * 4 * (N * M + 2 * M * J + 2 * N + M + T6) / HBM_BYTES_PER_S
-    res["bound_ms"] = max(bound_ops_ms, bound_bytes_ms)
-    res["bound_by"] = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+    step_ops, products = gen.step_operations(kind, N, M, J), 4 * N * M * J
+    nbytes = 4 * (N * M + 2 * M * J + 2 * N + M + T6)
+    res["bound_ms"], term = tc_bound(T6 * products, T6 * (step_ops - products), nbytes)
+    res["bound_by"] = "bytes" if term == "bytes" else "operations"
+    simt_bound_ms = max(1e3 * T6 * step_ops / FP32_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S)
     log(f"  B3 device time {kind}/preconditioned T={T6} (profiler): "
-        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}")
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}; per step: "
+        f"{split_text(split, T6)}")
     log(f"  B3 time N={N} M_k={M} J={J} T={T6}: kernel {res['ms']:.3f} ms "
         f"({res['ms'] / T6:.4f} ms/step), plain {res['plain_ms']:.3f} ms, bound "
-        f"{res['bound_ms']:.3f} ms ({res['bound_by']}, "
-        f"{gen.step_operations(kind, N, M, J):.4e} ops/step)")
+        f"{res['bound_ms']:.3f} ms ({term}: 3 TF32 products of {products:.4e} flops at 495 "
+        f"TFLOP/s, {step_ops - products:.4e} elementwise ops at 67 TFLOP/s, a step); the fp32 "
+        f"SIMT bound of earlier runs {simt_bound_ms:.3f} ms ({step_ops:.4e} ops/step)")
     log(f"  context: the plain version's two fp32 torch.matmul products of one step "
         f"(P U and P^T dc) take {matmul_ms:.4f} ms")
     return res
@@ -819,6 +878,9 @@ U_TOL9 = {"gaussian": 1e-5, "bernoulli_sigmoid": 1e-5, "poisson_square": 1e-4,
           "student_t": 1e-5}
 
 
+B5_KERNELS = ("dc_kernel", "update_kernel")
+
+
 def phase_fused(pt, fused):
     x, y, z = headline_inputs(torch.float32)
     onb, ipb = headline_basis(pt, x, z), headline_ipb(pt, x, z)
@@ -844,10 +906,16 @@ def phase_fused(pt, fused):
         for kind, cost in costs.items():
             got_kind, params = fused.dc_kind_for_cost(cost)
             require(got_kind == kind, f"dc kind {got_kind} for {kind}")
-            # Poisson: F = P (u + 2) away from the pole (the JAX test's shift)
-            uu = u + 2.0 if kind == "poisson_square" else u
+            # Poisson: F away from the 1/f pole, as phase 6 trains it: a mean
+            # shift of 3 and particles 0.2 u. (Next to the pole, where P (u + 2)
+            # + 0.3 comes at this shape, any two fp32 products that sum in
+            # different orders differ by the order of max|U|.)
+            uu, shift = (0.2 * u, 3.0) if kind == "poisson_square" else (u, 0.3)
             args = (basis.train_projection, d, cost.y_train, uu, prior, noise, kind)
-            kw = dict(eta=STEP_SIZE, params=params, mean_shift=0.3)
+            kw = dict(eta=STEP_SIZE, params=params, mean_shift=shift)
+            if kind == "poisson_square":
+                f_min = float((basis.train_projection @ uu + shift).abs().min())
+                require(f_min >= 1.0, f"Poisson case within {f_min} of the pole")
             got = fused.fused_update(*args, **kw)
             plain = fused.fused_update_reference(*args, **kw)
             torch.cuda.synchronize()
@@ -862,21 +930,37 @@ def phase_fused(pt, fused):
     args, kw = timed
     res["ms"] = cuda_ms(lambda: fused.fused_update(*args, **kw), reps=20, warmup=2)
     res["plain_ms"] = cuda_ms(lambda: fused.fused_update_reference(*args, **kw), reps=10, warmup=1)
-    dev_ms = profiled_device_ms(lambda: fused.fused_update(*args, **kw),
-                                ("dc_kernel", "update_kernel"), 10)
+    split = profiled_device_split(lambda: fused.fused_update(*args, **kw), B5_KERNELS, 10)
+    dev_ms = sum_measured(split)
+
+    def host_ms(calls=20):
+        # the host's own time per call, its launches queued behind a device sleep
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fused.fused_update(*args, **kw)
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e3 * elapsed / calls
+
+    host_call_ms = min(host_ms() for _ in range(3))
     p, u = args[0], args[3]
     dc = torch.randn((N, J), device="cuda")
     matmul_ms = cuda_ms(lambda: (p @ u, ipb.base_gram_induce_train @ dc), reps=20, warmup=2)
     ops = fused.step_operations("bernoulli_sigmoid", N, M, J, prior_is_diag=False)
-    bound_ops_ms = 1e3 * ops / FP32_OPS_PER_S
-    bound_bytes_ms = 1e3 * 4 * (2 * N * M + N + M * M + 3 * M * J) / HBM_BYTES_PER_S
-    res["bound_ms"] = max(bound_ops_ms, bound_bytes_ms)
-    res["bound_by"] = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+    products = 4 * N * M * J + 2 * M * M * J
+    nbytes = 4 * (2 * N * M + N + M * M + 3 * M * J)
+    res["bound_ms"], term = tc_bound(products, ops - products, nbytes)
+    res["bound_by"] = "bytes" if term == "bytes" else "operations"
+    simt_bound_ms = max(1e3 * ops / FP32_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S)
     log(f"  B5 device time IPB bernoulli_sigmoid (profiler): "
-        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} ({split_text(split)}); "
+        f"the host's own time per call {host_call_ms:.4f} ms")
     log(f"  B5 time N={N} M={M} J={J}, IPB bernoulli_sigmoid: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
-        f"{ops:.4e} ops)")
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({term}: 3 TF32 products of "
+        f"{products:.4e} flops at 495 TFLOP/s, {ops - products:.4e} elementwise ops at 67 "
+        f"TFLOP/s); the fp32 SIMT bound of earlier runs {simt_bound_ms:.4f} ms ({ops:.4e} ops)")
     log(f"  context: the two fp32 torch.matmul products of one step (P U and k(Z,X) dc) take "
         f"{matmul_ms:.4f} ms")
     return res
@@ -985,6 +1069,7 @@ def main() -> int:
     from projected_langevin_sampling_torch.ops.cuda import general_train as gen
     from projected_langevin_sampling_torch.ops.cuda import quadratic_train as quad
     from projected_langevin_sampling_torch.ops.cuda import fused_update as fused
+    from projected_langevin_sampling_torch.ops.cuda import tc_product as tc
 
     # phase 1: environment and build
     smi = subprocess.run(
@@ -999,6 +1084,16 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for name in ("general_train", "fused_update"):
+        hmma = sass_hmma_count(build.library_path(name))
+        log(f"  {name}: " + ("HMMA not measured (no cuobjdump)" if hmma is None
+                              else f"{hmma} HMMA instructions in its SASS"))
+        require(hmma is None or hmma > 0, f"{name} holds no tensor-core instruction")
+    log(f"  tensor-core product (csrc/tc_product.cuh): {tc.TILE_M} x {tc.TILE_N} tiles, stages of "
+        f"{tc.TILE_K}; at the headline B3's update splits N into "
+        f"{tc.split_k(M, J, N).slices} slices and B5's matrix-prior update its depth into "
+        f"{tc.split_k(M, J, -(-N // tc.TILE_K) * tc.TILE_K + M).slices}, over "
+        f"{tc.split_k(M, J, N).tiles} output tiles")
 
     def phase(title, fn, *args):
         log(title)

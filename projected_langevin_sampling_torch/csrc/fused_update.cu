@@ -18,39 +18,47 @@
 // langevin_steps passes the basis's mean constant.
 //
 // What bounds it on this card: operations. The two N products are 4 N M J
-// flops (1.02e10 at N = 5000, M = 512, J = 1000), a matrix prior adds
-// 2 M^2 J (5.2e8), and dc about 15-25 operations per element of F (about
-// 1e8). The bytes (P, D, U, the noise, U' and y) are about 27 MB, a twentieth
-// of the time of the operations at 3.35 TB/s.
+// flops (1.02e10 at N = 5000, M = 512, J = 1000) and a matrix prior adds
+// 2 M^2 J (5.2e8), each run as three TF32 products on the tensor cores
+// (0.065 ms at 495 TFLOP/s); dc is about 15-25 operations per element of F
+// (about 1e8, 0.002 ms on the CUDA cores). The bytes (P, D, U, the noise, U'
+// and y) are about 27 MB, 0.008 ms at 3.35 TB/s.
 //
 // Design. The TPU kernel accumulates the N axis of its grid in order into one
-// output block. Blocks on the H100 run in no order and cannot do that without
-// atomics, so the update is two launches on one stream:
-//   dc_kernel      grid (J tiles, N tiles): F tile = P tile U tile over K = M
-//                  in shared memory, then dc in the epilogue into an (N, J)
-//                  scratch buffer (20 MB at the shape above, which stays in
-//                  the 50 MB L2); rows and columns past the edge are not
-//                  written;
-//   update_kernel  grid (J tiles, M tiles): D^T dc over K = N, plus Prior U
-//                  over K = M into the same accumulator for a matrix prior,
-//                  then the update with the prior, the noise and eta.
-// No atomics: a rerun is bitwise equal. D is read in either layout, (N, M)
-// (P) or its transpose stored (M, N) (k(Z, X)), so neither is copied.
+// output block. Blocks on the H100 run in no order, so the update is two
+// launches on one stream, both products on the tensor cores in 3xTF32
+// (tc_product.cuh: fp32 operands split into two TF32 halves, three products,
+// error at the level of an fp32 product):
+//   dc_kernel      grid (J tiles, N tiles): F tile = P tile U tile over K = M,
+//                  then dc in the epilogue into an (N, J) scratch buffer (20
+//                  MB at the shape above, which stays in the 50 MB L2); rows
+//                  and columns past the edge are not written. Its first block
+//                  also zeroes the update's split-K arrival counters;
+//   update_kernel  grid (J tiles, M tiles, S slices): split-K over the depth
+//                  of D^T dc (K = N) followed, for a matrix prior, by Prior U
+//                  (K = M) in the same accumulator, the two laid end to end
+//                  with N rounded up to a stage; the last block of a tile to
+//                  arrive sums the S partial tiles in a fixed order and runs
+//                  the update with the prior, the noise and eta.
+// No atomic touches a value: a rerun is bitwise equal. At the headline the dc
+// grid is 8 x 79 = 632 tiles of 64 x 128 and the update's 64 tiles take S = 4
+// slices, 256 blocks (ops/cuda/tc_product.py picks S from the shape alone).
+// D is read in either layout, (N, M) (P) or its transpose stored (M, N)
+// (k(Z, X)), so neither is copied.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 
-#include "langevin_common.cuh"
+#include "tc_product.cuh"
 
 namespace {
 
-using plst::BK;
-using plst::BM;
-using plst::BN;
-using plst::THREADS;
-using plst::TM;
-using plst::TN;
+namespace tc = plst::tc;
+using tc::BK;
+using tc::BM;
+using tc::BN;
+using tc::THREADS;
 
 // the order of DC_KINDS in ops/cuda/fused_update.py
 enum DcKind { GAUSSIAN = 0, BERNOULLI_SIGMOID = 1, POISSON_SQUARE = 2, STUDENT_T = 3 };
@@ -79,78 +87,98 @@ __device__ __forceinline__ float dc_of(float f, float y, const DcParams& dp) {
   }
 }
 
-// F = P U + m0 on one (N, J) tile, then dc.
+// F = P U + m0 on one (N, J) tile, then dc; block (0, 0) also zeroes the
+// update's arrival counters.
 template <int KIND>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, tc::MIN_BLOCKS)
 dc_kernel(const float* __restrict__ p, const float* __restrict__ u, const float* __restrict__ y,
-          float* __restrict__ dc, int n, int m, int j, DcParams dp) {
-  __shared__ float a_tile[BK][BM + 1];
-  __shared__ __align__(16) float b_tile[BK][BN];
+          float* __restrict__ dc, int* __restrict__ counters, int n_counters, int n, int m, int j,
+          DcParams dp) {
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    for (int i = threadIdx.x; i < n_counters; i += THREADS) counters[i] = 0;
+  }
+  extern __shared__ __align__(16) float smem[];
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  plst::tile_product<false>(p, m, n, u, j, j, m, row0, col0, a_tile, b_tile, acc);
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= n) continue;
-    const float yr = y[r];
-#pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {
-      const int c = col0 + tx * TN + jj;
-      if (c < j) dc[(size_t)r * j + c] = dc_of<KIND>(acc[i][jj] + dp.m0, yr, dp);
+  tc::Acc acc;
+  tc::zero(acc);
+  tc::product<false>(p, m, n, u, j, j, 0, m, row0, col0, smem, acc);
+  tc::stage(acc, smem);
+  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {  // a warp on 32 columns of a row
+    const int r = row0 + e / BN, c = col0 + e % BN;
+    if (r < n && c < j) {
+      dc[(size_t)r * j + c] = dc_of<KIND>(smem[(e / BN) * tc::TILE_STRIDE + e % BN] + dp.m0, y[r],
+                                          dp);
     }
   }
 }
 
-// U' = U - eta (D^T dc + prior(U)) + root2eta noise on one (M, J) tile.
-// D_KMAJOR: d is D (N, M); else d is D^T stored (M, N).
+// U' = U - eta (D^T dc + prior(U)) + root2eta noise on one (M, J) tile:
+// slice blockIdx.z of the depth N (+ M for a matrix prior), then the update
+// in the tile's last block to arrive. D_KMAJOR: d is D (N, M); else d is D^T
+// stored (M, N).
 template <bool D_KMAJOR, bool PRIOR_DIAG>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, tc::MIN_BLOCKS)
 update_kernel(const float* __restrict__ d, const float* __restrict__ dc,
               const float* __restrict__ u, const float* __restrict__ prior,
-              const float* __restrict__ noise, float* __restrict__ u_out, int n, int m, int j,
-              float eta, float root2eta) {
-  __shared__ float a_tile[BK][BM + 1];
-  __shared__ __align__(16) float b_tile[BK][BN];
+              const float* __restrict__ noise, float* __restrict__ u_out,
+              float* __restrict__ slabs, int* __restrict__ counters, int n, int m, int j,
+              int slices, float eta, float root2eta) {
+  extern __shared__ __align__(16) float smem[];
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  plst::tile_product<D_KMAJOR>(d, D_KMAJOR ? m : n, m, dc, j, j, n, row0, col0, a_tile, b_tile,
-                               acc);
-  if (!PRIOR_DIAG) {
-    plst::tile_product<false>(prior, m, m, u, j, j, m, row0, col0, a_tile, b_tile, acc);
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x, tiles = gridDim.x * gridDim.y;
+  // depth [0, N) is D^T dc; [n_pad, n_pad + M) is Prior U
+  const int n_pad = (n + BK - 1) / BK * BK;
+  const int depth = PRIOR_DIAG ? n : n_pad + m;
+  const int k_slice = tc::slice_depth(depth, slices);
+  const int k_begin = blockIdx.z * k_slice, k_end = min(depth, k_begin + k_slice);
+  tc::Acc acc;
+  tc::zero(acc);
+  if (k_begin < n) {
+    tc::product<D_KMAJOR>(d, D_KMAJOR ? m : n, m, dc, j, j, k_begin, min(k_end, n), row0, col0,
+                          smem, acc);
   }
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= m) continue;
-    const float pr = PRIOR_DIAG ? prior[r] : 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {
-      const int c = col0 + tx * TN + jj;
-      if (c >= j) continue;
-      const size_t k = (size_t)r * j + c;
-      const float uv = u[k];
-      const float drift = PRIOR_DIAG ? acc[i][jj] + pr * uv : acc[i][jj];
-      u_out[k] = uv - eta * drift + root2eta * noise[k];
-    }
+  if (!PRIOR_DIAG && k_end > n_pad) {
+    tc::product<false>(prior, m, m, u, j, j, max(k_begin, n_pad) - n_pad, k_end - n_pad, row0,
+                       col0, smem, acc);
   }
+  if (!tc::reduce_slices(acc, slabs, counters, tile, tiles, blockIdx.z, slices)) return;
+  tc::stage(acc, smem);
+  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {  // a warp on 32 columns of a row
+    const int r = row0 + e / BN, c = col0 + e % BN;
+    if (r >= m || c >= j) continue;
+    const size_t k = (size_t)r * j + c;
+    const float uv = u[k];
+    const float g = smem[(e / BN) * tc::TILE_STRIDE + e % BN];
+    const float drift = PRIOR_DIAG ? g + prior[r] * uv : g;
+    u_out[k] = uv - eta * drift + root2eta * noise[k];
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_ring(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
 }
 
 template <int KIND>
 cudaError_t launch_dc(dim3 grid, cudaStream_t stream, const float* p, const float* u,
-                      const float* y, float* dc, int n, int m, int j, const DcParams& dp) {
-  dc_kernel<KIND><<<grid, THREADS, 0, stream>>>(p, u, y, dc, n, m, j, dp);
+                      const float* y, float* dc, int* counters, int n_counters, int n, int m,
+                      int j, const DcParams& dp) {
+  cudaError_t err = allow_ring(dc_kernel<KIND>);
+  if (err != cudaSuccess) return err;
+  dc_kernel<KIND><<<grid, THREADS, tc::SMEM_BYTES, stream>>>(p, u, y, dc, counters, n_counters, n,
+                                                             m, j, dp);
   return cudaGetLastError();
 }
 
 template <bool D_KMAJOR, bool PRIOR_DIAG>
 cudaError_t launch_update(dim3 grid, cudaStream_t stream, const float* d, const float* dc,
                           const float* u, const float* prior, const float* noise, float* u_out,
-                          int n, int m, int j, float eta, float root2eta) {
-  update_kernel<D_KMAJOR, PRIOR_DIAG><<<grid, THREADS, 0, stream>>>(d, dc, u, prior, noise, u_out,
-                                                                    n, m, j, eta, root2eta);
+                          float* slabs, int* counters, int n, int m, int j, float eta,
+                          float root2eta) {
+  cudaError_t err = allow_ring(update_kernel<D_KMAJOR, PRIOR_DIAG>);
+  if (err != cudaSuccess) return err;
+  update_kernel<D_KMAJOR, PRIOR_DIAG><<<grid, THREADS, tc::SMEM_BYTES, stream>>>(
+      d, dc, u, prior, noise, u_out, slabs, counters, n, m, j, (int)grid.z, eta, root2eta);
   return cudaGetLastError();
 }
 
@@ -158,13 +186,16 @@ cudaError_t launch_update(dim3 grid, cudaStream_t stream, const float* d, const 
 
 // One update on `stream`, no synchronisation: 2 launches. d_kmajor: d is D
 // (N, M) row-major, else D^T (M, N) row-major. prior_diag: prior is (M,),
-// else (M, M). dc is an (N, J) scratch buffer. Returns a CUDA error code, 0
-// on success.
+// else (M, M). dc is an (N, J) scratch buffer; counters holds one int per
+// update tile (M, J) and slabs `slices` partial tiles per update tile when
+// slices > 1 (tc_product.cuh; ops/cuda/tc_product.py sizes them). Returns a
+// CUDA error code, 0 on success.
 extern "C" int plst_fused_update(const void* p, const void* d, const void* y, const void* u,
                                  const void* prior, const void* noise, void* dc, void* u_out,
-                                 int n, int m, int j, int d_kmajor, int prior_diag, int kind,
-                                 float p0, float p1, float m0, float eta, void* stream_ptr) {
-  if (n <= 0 || m <= 0 || j <= 0 || kind < GAUSSIAN || kind > STUDENT_T) {
+                                 void* slabs, void* counters, int n, int m, int j, int d_kmajor,
+                                 int prior_diag, int kind, int slices, float p0, float p1,
+                                 float m0, float eta, void* stream_ptr) {
+  if (n <= 0 || m <= 0 || j <= 0 || slices < 1 || kind < GAUSSIAN || kind > STUDENT_T) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -173,35 +204,44 @@ extern "C" int plst_fused_update(const void* p, const void* d, const void* y, co
   const float* up = static_cast<const float*>(u);
   const float* yp = static_cast<const float*>(y);
   float* dcp = static_cast<float*>(dc);
+  float* slabp = static_cast<float*>(slabs);
+  int* cnt = static_cast<int*>(counters);
   const dim3 grid_dc((j + BN - 1) / BN, (n + BM - 1) / BM);
+  const dim3 grid_up((j + BN - 1) / BN, (m + BM - 1) / BM, slices);
+  const int n_counters = (int)(grid_up.x * grid_up.y);
   cudaError_t err;
   switch (kind) {
-    case GAUSSIAN: err = launch_dc<GAUSSIAN>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp); break;
+    case GAUSSIAN:
+      err = launch_dc<GAUSSIAN>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j, dp);
+      break;
     case BERNOULLI_SIGMOID:
-      err = launch_dc<BERNOULLI_SIGMOID>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp);
+      err = launch_dc<BERNOULLI_SIGMOID>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m,
+                                         j, dp);
       break;
     case POISSON_SQUARE:
-      err = launch_dc<POISSON_SQUARE>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp);
+      err = launch_dc<POISSON_SQUARE>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j,
+                                      dp);
       break;
-    default: err = launch_dc<STUDENT_T>(grid_dc, stream, pp, up, yp, dcp, n, m, j, dp); break;
+    default:
+      err = launch_dc<STUDENT_T>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j, dp);
+      break;
   }
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_up((j + BN - 1) / BN, (m + BM - 1) / BM);
   const float* dp_ = static_cast<const float*>(d);
   const float* prp = static_cast<const float*>(prior);
   const float* np_ = static_cast<const float*>(noise);
   float* outp = static_cast<float*>(u_out);
   const float root2eta = sqrtf(2.0f * eta);
   if (d_kmajor) {
-    err = prior_diag ? launch_update<true, true>(grid_up, stream, dp_, dcp, up, prp, np_, outp, n,
-                                                 m, j, eta, root2eta)
+    err = prior_diag ? launch_update<true, true>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
+                                                 slabp, cnt, n, m, j, eta, root2eta)
                      : launch_update<true, false>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
-                                                  n, m, j, eta, root2eta);
+                                                  slabp, cnt, n, m, j, eta, root2eta);
   } else {
     err = prior_diag ? launch_update<false, true>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
-                                                  n, m, j, eta, root2eta)
+                                                  slabp, cnt, n, m, j, eta, root2eta)
                      : launch_update<false, false>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
-                                                   n, m, j, eta, root2eta);
+                                                   slabp, cnt, n, m, j, eta, root2eta);
   }
   return (int)err;
 }

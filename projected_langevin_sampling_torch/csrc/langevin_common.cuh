@@ -1,7 +1,8 @@
-// Building blocks shared by the trainer kernels that multiply matrices on the
-// CUDA cores (general_train.cu, quadratic_train.cu, fused_update.cu): a SIMT
-// fp32 tile product through shared memory, a fixed-order block sum, and the
-// reference's early stopper kept in device memory.
+// Building blocks shared by the trainer kernels: a SIMT fp32 tile product
+// through shared memory (quadratic_train.cu; general_train.cu and
+// fused_update.cu multiply on the tensor cores through tc_product.cuh), a
+// fixed-order block sum and the reference's early stopper kept in device
+// memory (general_train.cu, quadratic_train.cu).
 //
 // A product kernel runs THREADS = 256 threads on a BM x BN = 64 x 64 output
 // tile, 4 x 4 elements to a thread, with the depth in shared-memory stages

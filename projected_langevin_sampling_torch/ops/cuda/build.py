@@ -111,13 +111,19 @@ def build(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, signatures: dict | None = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+
+    ``signatures`` maps C entry points to their ``argtypes``; they are set,
+    with an ``int`` return, once, when the library is loaded."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build((name,))
             lib = ctypes.CDLL(library_path(name))
+            for fn_name, argtypes in (signatures or {}).items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
             _loaded[name] = lib
         return lib
 

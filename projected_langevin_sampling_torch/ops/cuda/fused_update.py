@@ -15,10 +15,18 @@ kernel's function; ``training.langevin_steps`` passes the basis's mean
 constant.
 
 Bound on the H100: operations, 4 N M J flops of the two N products (plus
-2 M^2 J for a matrix prior) and the dc closed form per element of F. The
-kernel is two launches on the current stream (F with the dc epilogue into an
-(N, J) scratch buffer, then D^T dc with the update), no atomics; D is read in
-whichever of the layouts (N, M) or its transpose (M, N) it is stored in.
+2 M^2 J for a matrix prior), three TF32 products each on the tensor cores
+(3xTF32, ``csrc/tc_product.cuh``: fp32-level error), and the dc closed form
+per element of F. The kernel is two launches on the current stream (F with
+the dc epilogue into an (N, J) scratch buffer, then D^T dc with the update),
+no atomics on values; D is read in whichever of the layouts (N, M) or its
+transpose (M, N) it is stored in.
+
+Tiling (``ops/cuda/tc_product.py``): both products in 64 x 128 output
+tiles; the update's (M, J) output over
+:func:`~projected_langevin_sampling_torch.ops.cuda.tc_product.split_k` slices
+of its depth (N, then M for a matrix prior, N rounded up to a stage), one
+split-K arrival counter per tile and a slab of partial tiles as scratch.
 
 :func:`fused_update` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`fused_update_reference` only for
@@ -45,7 +53,7 @@ from projected_langevin_sampling_torch.models.link_functions import (
     SigmoidLinkFunction,
     SquareLinkFunction,
 )
-from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.ops.cuda import build, tc_product
 
 # the order of the kernel's DcKind enum
 DC_KINDS = ("gaussian", "bernoulli_sigmoid", "poisson_square", "student_t")
@@ -60,9 +68,8 @@ OPS_PER_ELEMENT = {
 # per element of U: the prior term, eta, the noise and the update
 OPS_PER_UPDATE_ELEMENT = 6
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
-    ctypes.c_void_p,
-]
+_SIGNATURES = {"plst_fused_update": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                                    + [ctypes.c_float] * 4 + [ctypes.c_void_p]}
 
 
 def step_operations(kind: str, n: int, m: int, j: int, prior_is_diag: bool) -> int:
@@ -170,17 +177,19 @@ def fused_update(
     d_kmajor = not (d.dtype == torch.float32 and d.T.is_contiguous() and not d.is_contiguous())
     d32 = f32(d) if d_kmajor else d.T
     p32, y32, u32, prior32, noise32 = (f32(t) for t in (p, y, u, prior, noise))
+    depth = n if prior.ndim == 1 else -(-n // tc_product.TILE_K) * tc_product.TILE_K + m
+    upd = tc_product.split_k(m, j, depth)  # an arrival counter per tile
     with torch.cuda.device(u.device):
         dc = torch.empty((n, j), dtype=torch.float32, device=u.device)
         out = torch.empty((m, j), dtype=torch.float32, device=u.device)
-        lib = build.load("fused_update")
-        fn = lib.plst_fused_update
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        err = fn(
+        slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=u.device)
+        counters = torch.empty(upd.tiles, dtype=torch.int32, device=u.device)
+        err = build.load("fused_update", _SIGNATURES).plst_fused_update(
             p32.data_ptr(), d32.data_ptr(), y32.data_ptr(), u32.data_ptr(), prior32.data_ptr(),
-            noise32.data_ptr(), dc.data_ptr(), out.data_ptr(), n, m, j, int(d_kmajor),
-            int(prior.ndim == 1), DC_KINDS.index(kind), params[0], params[1],
-            float(mean_shift), float(eta), torch.cuda.current_stream().cuda_stream,
+            noise32.data_ptr(), dc.data_ptr(), out.data_ptr(), slabs.data_ptr(),
+            counters.data_ptr(), n, m, j, int(d_kmajor), int(prior.ndim == 1),
+            DC_KINDS.index(kind), upd.slices, params[0], params[1], float(mean_shift), float(eta),
+            torch.cuda.current_stream().cuda_stream,
         )
         build.check(err, "fused_update kernel")
         fused_update.launches += 1

@@ -16,13 +16,20 @@ energies are NaN. The split schemes' row constants are
 :func:`split_row_constants`.
 
 Bound on the H100: operations, 4 N M_k J flops of two fp32 products per step
-plus the cost kind's special functions (see the source note). The kernel
-queues three launches per step on the current stream (forward product with
-the cost epilogue, a one-block stopper, the transposed product with the
-update) and never synchronises inside the run; the stopper state lives on
-the card, so there is one pass whatever the patience. Operands and sums are
-fp32 on the CUDA cores, where the TPU kernel feeds bf16 to its MXU; like B1
-it has no resident-size limit.
+(three TF32 products each on the tensor cores) plus the cost kind's special
+functions on the CUDA cores (see the source note). The kernel queues three
+launches per step on the current stream (forward product with the cost
+epilogue, a one-block stopper, the transposed product with the update) and
+never synchronises inside the run; the stopper state lives on the card, so
+there is one pass whatever the patience. Operands and sums are fp32, the
+products in 3xTF32 (``csrc/tc_product.cuh``), where the TPU kernel feeds
+bf16 to its MXU; like B1 it has no resident-size limit.
+
+Tiling (``ops/cuda/tc_product.py``): the forward product's (N, J) output in
+64 x 128 tiles, one cost partial each; the update's (M_k, J) output in
+64 x 128 tiles, one prior partial and one split-K arrival counter each,
+over :func:`~projected_langevin_sampling_torch.ops.cuda.tc_product.split_k`
+slices of N, whose partial tiles go to a slab of scratch.
 
 :func:`general_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`general_train_reference` only for
@@ -38,7 +45,7 @@ import math
 import numpy as np
 import torch
 
-from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.ops.cuda import build, tc_product
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
     run_with_stopper,
@@ -83,10 +90,10 @@ OPS_PER_ELEMENT = {
 # with half a Box-Muller pair (as B1's 25 + 6)
 OPS_PER_UPDATE_ELEMENT = 8 + 4 + 31
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+_SIGNATURES = {"plst_general_train": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
     ctypes.c_void_p,
-]
+]}
 
 
 def step_operations(kind: str, n: int, m_k: int, j: int) -> int:
@@ -186,13 +193,16 @@ def general_train_reference(
     zero_noise: bool = False,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    product=torch.matmul,
 ):
     """The plain PyTorch loop over T doing the kernel's math in the input's
     dtype, with the early-stopper carry.
 
     Noise per step: zeros with ``zero_noise``; else ``noise[t]`` for injected
     standard normals ``noise`` (T, M_k, J); else normals from ``generator``.
-    Returns ``(u, energies, recorded, steps_run)``."""
+    ``product`` computes P U and P^T dc (the tests put the emulation of the
+    kernel's 3xTF32 product there). Returns ``(u, energies, recorded,
+    steps_run)``."""
     dtype, device = u0.dtype, u0.device
     inv_lam, dec, ds, nscale = (
         c[:, None] for c in split_row_constants(eigenvalues, eta, discretisation)
@@ -202,13 +212,13 @@ def general_train_reference(
     aux_col = torch.zeros_like(y_col) if aux is None else aux[:, None]
 
     def sweep(u):
-        cost, dc = cost_and_dc(kind, p @ u + mean_shift, y_col, aux_col, params)
+        cost, dc = cost_and_dc(kind, product(p, u) + mean_shift, y_col, aux_col, params)
         return torch.sum(cost, dim=0), dc
 
     def step(t, state):
         # carries dc: the sweep of this step's energy gives the next drift
         u, dc = state
-        g = p.T @ dc
+        g = product(p.T, dc)
         if discretisation == "euler":
             u_new = u - eta * (g + u * inv_lam)
             scale = root2eta
@@ -298,24 +308,24 @@ def general_train(
         [*params, float(mean_shift), *_GH16_SCALED_NODES, *_GH16_SCALED_WEIGHTS],
         dtype=torch.float32,
     )
-    tiles = lambda rows: -(-rows // 64) * -(-j // 64)  # noqa: E731  (BM = BN = 64)
+    upd = tc_product.split_k(m_k, j, n)  # a prior partial and a counter per tile
     with torch.cuda.device(device):
         u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
         u_b = torch.empty_like(u_a)
         dc = torch.empty((n, j), dtype=torch.float32, device=device)
-        cost_partials = torch.empty(tiles(n), dtype=torch.float64, device=device)
-        prior_partials = torch.empty(tiles(m_k), dtype=torch.float64, device=device)
+        cost_partials = torch.empty(tc_product.tiles(n, j), dtype=torch.float64, device=device)
+        prior_partials = torch.empty(upd.tiles, dtype=torch.float64, device=device)
+        slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=device)
+        counters = torch.empty(upd.tiles, dtype=torch.int32, device=device)
         energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
         state = torch.empty(4, dtype=torch.int32, device=device)
-        lib = build.load("general_train")
-        fn = lib.plst_general_train
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        err = fn(
+        err = build.load("general_train", _SIGNATURES).plst_general_train(
             p32.data_ptr(), y32.data_ptr(), aux32.data_ptr(),
             *(c.data_ptr() for c in row_constants),
             u_a.data_ptr(), u_b.data_ptr(), dc.data_ptr(), cost_partials.data_ptr(),
-            prior_partials.data_ptr(), energies.data_ptr(), state.data_ptr(),
-            n, m_k, j, int(num_steps), COST_KINDS.index(kind), DISCRETISATIONS.index(discretisation),
+            prior_partials.data_ptr(), slabs.data_ptr(), counters.data_ptr(),
+            energies.data_ptr(), state.data_ptr(), n, m_k, j, int(num_steps),
+            COST_KINDS.index(kind), DISCRETISATIONS.index(discretisation), upd.slices,
             host_params.data_ptr(), float(eta), float(patience), int(seed), int(zero_noise),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -1,5 +1,6 @@
-"""The PyTorch port and its chip smoke script import nothing of JAX (jax,
-flax, optax) and nothing of the JAX package; an AST scan of every module."""
+"""The PyTorch port, its chip smoke script and the scripts that time it on
+the card import nothing of JAX (jax, flax, optax) and nothing of the JAX
+package; an AST scan of every module."""
 
 import ast
 import pathlib
@@ -11,6 +12,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "projected_langevin_sampling_tpu"
 FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "examples" / "readme_demo_torch.py",
+    ROOT / "scripts" / "b3_b5_breakdown.py",
+    ROOT / "scripts" / "mma_sync_ceiling.py",
 ]
 
 
@@ -35,7 +38,8 @@ def test_port_has_the_slice_modules():
     for module in ("ops/kernels.py", "ops/linalg.py", "training.py", "convert.py",
                    "ops/cuda/gram.py", "ops/cuda/spectral_train.py",
                    "models/basis/orthonormal.py", "models/pls.py",
-                   "ops/cuda/general_train.py", "models/mean_constant.py",
+                   "ops/cuda/general_train.py", "ops/cuda/tc_product.py",
+                   "models/mean_constant.py",
                    "models/costs/bernoulli.py", "models/costs/poisson.py",
                    "models/costs/student_t.py", "models/costs/multimodal.py",
                    "models/costs/smoothed_bernoulli.py", "models/basis/inducing_point.py",
