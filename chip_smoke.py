@@ -19,11 +19,13 @@ each run with the launch counters set to 0 just before it and read just after:
   general kernel (B3), and 2000 steps of ``langevin_steps`` on the Euler
   general body (B5 once per step).
 
-Phase 1 also reports whether the built B3 and B5 libraries hold tensor-core
-instructions (HMMA in ``cuobjdump -sass``) and the tiling of their product
-(``csrc/tc_product.cuh``); phases 6 and 9 split B3's and B5's device time by
-kernel, give their bound on the tensor cores beside the fp32 SIMT bound of
-earlier runs, and phase 9 B5's host time per call.
+Phase 1 also reports whether the built B3, B4 and B5 libraries hold
+tensor-core instructions (HMMA in ``cuobjdump -sass``) and the tiling of
+their product (``csrc/tc_product.cuh``); phases 6 and 9 split B3's and B5's
+device time by kernel, phases 6, 8 and 9 give the bound on the tensor cores
+beside the fp32 SIMT bound of earlier runs, phase 8 B4's launches per run
+(one), its host enqueue and the device's idle share inside its call, and
+phase 9 B5's host time per call.
 
 Any failure raises; there is no CPU fallback.
 
@@ -745,7 +747,13 @@ def quadratic_args(basis, cost):
         e_const=e_const, shared=shared)
 
 
-def phase_quadratic(pt, quad):
+def synthetic_spd(m, gen):
+    """Q diag(1 + uniform(0, 1)) Q^T for a random orthogonal Q."""
+    q, _ = torch.linalg.qr(torch.randn((m, m), generator=gen, device="cuda"))
+    return (q * (1.0 + torch.rand(m, generator=gen, device="cuda"))) @ q.T
+
+
+def phase_quadratic(pt, quad, tc):
     from projected_langevin_sampling_torch.training import spectral_system_host
 
     x, y, z = headline_inputs(torch.float32)
@@ -760,6 +768,21 @@ def phase_quadratic(pt, quad):
         u0 = basis.initialise_particles(J, generator=0)
         errs.append(hold_zero_noise(*b4, f"{name} M={M} J={J} T={T8}", *args, u0,
                                     eta=STEP_SIZE, patience=math.inf, num_steps=T8, **kw)[0])
+    # ... and at ragged shapes (partial tiles, 4-byte copies where J is not a
+    # multiple of 4) on a synthetic system: A and E SPD with eigenvalues in
+    # [1, 2], S random; e_const keeps the energies away from 0, where a
+    # relative tolerance means nothing
+    for m, j in ((100, 37), (513, 1000)):
+        gen = torch.Generator(device="cuda").manual_seed(m)
+        a_r, e_r = synthetic_spd(m, gen), synthetic_spd(m, gen)
+        b_r, eb_r = torch.randn((2, m), generator=gen, device="cuda")
+        s_r = torch.randn((m, m), generator=gen, device="cuda") / math.sqrt(m)
+        u_r = torch.randn((m, j), generator=gen, device="cuda")
+        for shared in (True, False):
+            args = (a_r, b_r, a_r, b_r, None) if shared else (a_r, b_r, e_r, eb_r, s_r)
+            errs.append(hold_zero_noise(*b4, f"synthetic shared={shared} M={m} J={j} T=200",
+                                        *args, u_r, eta=0.05, patience=math.inf, num_steps=200,
+                                        e_const=float(m), shared=shared)[0])
     res["max_abs_err"] = max(errs)
     ipb_args, ipb_kw = quadratic_args(ipb, cost)
     spec = spectral_system_host(ipb, cost)
@@ -808,65 +831,86 @@ def phase_quadratic(pt, quad):
         f"[{eta * float(sigma64[0]):.3f}, 1]: max |z| = {z_max:.2f}")
     require(z_max < 6, "rows do not follow the Euler stationary law")
 
-    # (e) time at the main path's shape: one non-shared run of 20000 steps.
-    # Its enqueue on the host follows the device once the launch queue is
-    # full; the host's own cost per launch is the difference of two short
-    # runs (40 and 20 steps, 80 launches apart) queued behind a device sleep
+    # (e) time at the main path's shape: one non-shared run of 20000 steps,
+    # one launch whatever T
     kw = dict(ipb_kw, eta=STEP_SIZE, patience=math.inf, num_steps=STEPS)
 
-    def enqueue_ms(steps, busy_cycles=0):
+    def enqueue_ms(steps):
         torch.cuda.synchronize()
-        if busy_cycles:
-            torch.cuda._sleep(busy_cycles)
         t0 = time.perf_counter()
         quad.quadratic_train(*ipb_args, u0, seed=1, **dict(kw, num_steps=steps))
         elapsed = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
         return elapsed
 
-    run_enqueue_ms = enqueue_ms(STEPS)
-    short = {steps: min(enqueue_ms(steps, busy_cycles=200_000_000) for _ in range(3))
-             for steps in (20, 40)}
-    launch_us = 1e3 * (short[40] - short[20]) / 80
+    run_enqueue_ms, short_enqueue_ms = enqueue_ms(STEPS), min(enqueue_ms(20) for _ in range(3))
     res["ms"] = cuda_ms(lambda: quad.quadratic_train(*ipb_args, u0, seed=1, **kw), reps=2,
                         warmup=0)
     res["plain_ms"] = cuda_ms(lambda: quad.quadratic_train_reference(*ipb_args, u0, **kw), reps=1,
                               warmup=0)
-    dev_ms = profiled_device_ms(lambda: quad.quadratic_train(*ipb_args, u0, seed=1, **kw),
-                                B4_KERNELS, 1, warmup=False)
+    launches, dev_ms, rec_ms = b4_record(
+        quad, lambda: quad.quadratic_train(*ipb_args, u0, seed=1, **kw))
+    short_launches, _, _ = b4_record(
+        quad, lambda: quad.quadratic_train(*ipb_args, u0, seed=1, **dict(kw, num_steps=20)))
+    require(launches == short_launches == 1,
+            f"B4 launched {launches} kernels a 20000-step run, {short_launches} a 20-step one")
     onb_args, onb_kw = quadratic_args(onb, cost)
     kw_shared = dict(onb_kw, eta=STEP_SIZE, patience=math.inf, num_steps=STEPS)
     shared_ms = cuda_ms(lambda: quad.quadratic_train(*onb_args, u0, seed=1, **kw_shared), reps=1)
-    shared_dev_ms = profiled_device_ms(
-        lambda: quad.quadratic_train(*onb_args, u0, seed=1, **kw_shared), B4_KERNELS, 1,
-        warmup=False)
+    shared_launches, shared_dev_ms, shared_rec_ms = b4_record(
+        quad, lambda: quad.quadratic_train(*onb_args, u0, seed=1, **kw_shared))
+    require(shared_launches == 1, f"B4 launched {shared_launches} kernels a shared run")
     a, s_mat, e_mat = ipb_args[0], ipb_args[4], ipb_args[2]
     eps = torch.randn((M, J), device="cuda")
     matmul_ms = cuda_ms(lambda: (a @ u0, s_mat @ eps, e_mat @ u0), reps=20, warmup=2)
-    ops = STEPS * quad.step_operations(M, J, shared=False)
-    bound_ops_ms = 1e3 * ops / FP32_OPS_PER_S
-    bound_bytes_ms = 1e3 * 4 * (3 * M * M + 2 * M + 2 * M * J + STEPS) / HBM_BYTES_PER_S
-    res["bound_ms"] = max(bound_ops_ms, bound_bytes_ms)
-    res["bound_by"] = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
-    log(f"  B4 device time non-shared T={STEPS} (profiler): "
-        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}; host enqueue of the run "
-        f"{run_enqueue_ms:.1f} ms; the host's own cost per launch {launch_us:.2f} us")
+    step_ops = quad.step_operations(M, J, shared=False)
+    products, elementwise = 3 * 2 * M * M * J, quad.OPS_PER_ELEMENT_STEP * M * J
+    nbytes = 4 * (3 * M * M + 2 * M + 2 * M * J + STEPS)
+    res["bound_ms"], term = tc_bound(STEPS * products, STEPS * elementwise, nbytes)
+    res["bound_by"] = "bytes" if term == "bytes" else "operations"
+    simt_bound_ms = max(1e3 * STEPS * step_ops / FP32_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S)
+    shared_bound_ms, shared_term = tc_bound(STEPS * products / 3, STEPS * elementwise, nbytes)
+    shared_simt_ms = 1e3 * STEPS * quad.step_operations(M, J, shared=True) / FP32_OPS_PER_S
+    items, blocks = quad.phase(M, J, shared=False, zero_noise=False), quad.coresident_blocks()
+    log(f"  B4 partition: {blocks} blocks fit on the card together, grid "
+        f"{tc.persistent_grid(items, blocks)}; a step is {items.items} items ({items.products} "
+        f"products x {items.slices} slices x {items.tiles} tiles of 64 x 128)")
+    log(f"  B4 launches per run: {launches} at T={STEPS}, {short_launches} at T=20 "
+        f"(kernels named {B4_KERNELS}); host enqueue of a run {run_enqueue_ms:.3f} ms at "
+        f"T={STEPS}, {short_enqueue_ms:.3f} ms at T=20")
+    log(f"  B4 device time non-shared T={STEPS} (the kernel's own record): {dev_ms:.3f} ms "
+        f"({1e3 * dev_ms / STEPS:.2f} us/step) of a {rec_ms:.3f} ms call (CUDA events, the "
+        f"same run); the call's share outside the kernel (device idle, or the wrapper's small "
+        f"kernels) {1 - dev_ms / rec_ms:.4f}")
     log(f"  B4 time M={M} J={J} T={STEPS}: kernel {res['ms']:.3f} ms "
         f"({res['ms'] / STEPS:.5f} ms/step), plain {res['plain_ms']:.1f} ms, bound "
-        f"{res['bound_ms']:.3f} ms ({res['bound_by']}, "
-        f"{quad.step_operations(M, J, shared=False):.4e} ops/step)")
-    shared_bound_ms = 1e3 * STEPS * quad.step_operations(M, J, shared=True) / FP32_OPS_PER_S
+        f"{res['bound_ms']:.3f} ms ({term}: 3 TF32 products of {products:.4e} flops at 495 "
+        f"TFLOP/s, {elementwise:.4e} elementwise ops at 67 TFLOP/s, a step); the fp32 SIMT "
+        f"bound of earlier runs {simt_bound_ms:.3f} ms ({step_ops:.4e} ops/step)")
     log(f"  B4 shared (ONB) T={STEPS}: kernel {shared_ms:.3f} ms "
-        f"({shared_ms / STEPS:.5f} ms/step), device "
-        f"{'not measured' if shared_dev_ms is None else f'{shared_dev_ms:.3f} ms'} (profiler), "
-        f"bound {shared_bound_ms:.3f} ms (operations)")
+        f"({shared_ms / STEPS:.5f} ms/step); device {shared_dev_ms:.3f} ms (its record) of a "
+        f"{shared_rec_ms:.3f} ms call (the same run), outside the kernel "
+        f"{1 - shared_dev_ms / shared_rec_ms:.4f}; bound {shared_bound_ms:.3f} ms "
+        f"({shared_term}), fp32 SIMT bound {shared_simt_ms:.3f} ms")
     log(f"  context: the three fp32 torch.matmul products of one non-shared step take "
         f"{matmul_ms:.4f} ms")
     return res
 
 
-B4_KERNELS = ("normals_kernel", "update_product_kernel", "update_shared_kernel",
-              "energy_kernel", "stop_kernel", "init_state_kernel")
+def b4_record(quad, fn):
+    """(B4 kernels started, device ms of the last, call ms) for one call of
+    ``fn``: the first two from the kernel's own record on the card (a launch
+    count, and its global timer from block 0's start to its end), so that
+    neither needs a profiler trace; the call's time from CUDA events around
+    the same call."""
+    torch.cuda.synchronize()
+    runs, _ = quad.record()
+    call_ms = cuda_ms(fn, reps=1, warmup=0)
+    runs_after, last_ms = quad.record()
+    return runs_after - runs, last_ms, call_ms
+
+
+B4_KERNELS = ("quadratic_run_kernel",)
 
 
 # --------------------------------------------------------------------------
@@ -1080,11 +1124,15 @@ def main() -> int:
     start = t0 = time.perf_counter()
     logs = build.build()
     log(f"  {len(logs)} kernels built in {time.perf_counter() - t0:.1f} s (all nvcc in parallel)")
-    for name, out in logs.items():
+    for name in build.SOURCES:  # the -Xptxas -v report, kept beside each library
+        with open(build.library_path(name) + ".log") as f:
+            out = f.read()
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            # B4's kernel by name: its registers, spills and shared memory
+            if ("registers" in line or "spill" in line
+                    or (name == "quadratic_train" and "entry function" in line)):
                 log(f"  {name}: {line.strip()}")
-    for name in ("general_train", "fused_update"):
+    for name in ("general_train", "quadratic_train", "fused_update"):
         hmma = sass_hmma_count(build.library_path(name))
         log(f"  {name}: " + ("HMMA not measured (no cuobjdump)" if hmma is None
                               else f"{hmma} HMMA instructions in its SASS"))
@@ -1119,7 +1167,7 @@ def main() -> int:
                        f"M={M}, J={J}, fp32, {STEPS7} steps",
                        phase_classification, pt, gram, spec, gen)
     quad_res = phase("phase 8: B4 quadratic trainer against its plain version and its law",
-                     phase_quadratic, pt, quad)
+                     phase_quadratic, pt, quad, tc)
     fused_res = phase("phase 9: B5 fused update against its plain version", phase_fused, pt,
                       fused)
     counters = {"gram": gram.ard_gram_scaled, "spectral": spec.spectral_train,

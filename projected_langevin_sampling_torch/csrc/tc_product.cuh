@@ -1,6 +1,7 @@
-// The block-level fp32 product of B3 (general_train.cu) and B5
-// (fused_update.cu) on Hopper's tensor cores, with fp32 accuracy (3xTF32),
-// an asynchronous-copy ring and a split-K reduction.
+// The block-level fp32 product of B3 (general_train.cu), B4
+// (quadratic_train.cu) and B5 (fused_update.cu) on Hopper's tensor cores,
+// with fp32 accuracy (3xTF32), an asynchronous-copy ring and a split-K
+// reduction.
 //
 // Product. acc += A B on one BM x BN = 64 x 128 output tile, 8 warps of 32 x
 // 32 each, with mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. Every
@@ -27,13 +28,15 @@
 // products.
 //
 // Split-K. A product whose output has few tiles (B3's and B5's transposed
-// products: 512 x 1000 outputs are 64 tiles against 132 SMs) runs S slices
-// of its depth in separate blocks. Each writes its partial tile to a slab in
-// fragment order (coalesced float4s), fences and bumps the tile's arrival
-// counter; the block that arrives last sums slices 0 .. S-1 in that fixed
-// order, so the result does not depend on which block came last and a
+// products, B4's: 512 x 1000 outputs are 64 tiles against 132 SMs) runs S
+// slices of its depth in separate blocks. Each writes its partial tile to a
+// slab in fragment order (coalesced float4s), fences and bumps the tile's
+// arrival counter; the block that arrives last sums slices 0 .. S-1 in that
+// fixed order, so the result does not depend on which block came last and a
 // rerun is bitwise equal, resets the counter to 0 for the next launch and
-// runs the caller's epilogue.
+// runs the caller's epilogue (reduce_slices). B4's persistent kernel, whose
+// blocks are all resident, has every block with a share of the tile wait for
+// the others and sum that share instead (publish, wait_count).
 //
 // What bounds it: mma.sync's TF32 rate. The tensor cores' dense TF32 peak is
 // 495 TFLOP/s, but mma.sync reaches only part of it on an H100, and three
@@ -301,6 +304,18 @@ __device__ __forceinline__ void product(const float* __restrict__ a, int lda, in
   __syncthreads();
 }
 
+// The block's partial tile into slab `slice` of `tile`, in fragment order.
+__device__ __forceinline__ void write_slab(const Acc& acc, float* __restrict__ slabs, int tile,
+                                           int tiles, int slice) {
+  float4* mine = reinterpret_cast<float4*>(slabs) + ((size_t)slice * tiles + tile) * TILE_FLOAT4;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+      mine[(mi * NI + ni) * THREADS + threadIdx.x] =
+          make_float4(acc[mi][ni][0], acc[mi][ni][1], acc[mi][ni][2], acc[mi][ni][3]);
+}
+
 // Split-K: the block of slice `slice` of tile `tile` writes its partial to
 // slabs (slices x tiles partial tiles); the last block of the tile to arrive
 // gets the sum over slices 0 .. slices-1 in that order in acc, resets the
@@ -311,13 +326,7 @@ __device__ __forceinline__ bool reduce_slices(Acc& acc, float* __restrict__ slab
                                               int slice, int slices) {
   if (slices == 1) return true;
   __shared__ int is_last;
-  float4* mine = reinterpret_cast<float4*>(slabs) + ((size_t)slice * tiles + tile) * TILE_FLOAT4;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-      mine[(mi * NI + ni) * THREADS + threadIdx.x] =
-          make_float4(acc[mi][ni][0], acc[mi][ni][1], acc[mi][ni][2], acc[mi][ni][3]);
+  write_slab(acc, slabs, tile, tiles, slice);
   __threadfence();  // the partial is visible on the card before the count says so
   __syncthreads();
   if (threadIdx.x == 0) is_last = atomicAdd(&counters[tile], 1) == slices - 1;
@@ -346,6 +355,73 @@ __device__ __forceinline__ bool reduce_slices(Acc& acc, float* __restrict__ slab
     }
   if (threadIdx.x == 0) counters[tile] = 0;
   return true;
+}
+
+// Split-K in a persistent kernel whose blocks are all resident at once (a
+// cooperative launch; B4): every block of a tile publishes its partial and
+// bumps the tile's arrival counter; a block with a share of the tile then
+// waits until the tile's other slices have arrived and sums that share of
+// the tile's float4s (slab_sum), so the epilogue is spread over the tile's
+// blocks instead of falling to the last. The counters only grow: a use
+// waits for the count before it plus the tile's items, so no block resets
+// them.
+
+// Bump counters[tile] once every thread of the block has written what the
+// count announces; the writes are visible on the card before the count is.
+__device__ __forceinline__ void signal(int* __restrict__ counters, int tile) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(&counters[tile], 1);
+  }
+}
+
+__device__ __forceinline__ void publish(const Acc& acc, float* __restrict__ slabs,
+                                        int* __restrict__ counters, int tile, int tiles,
+                                        int slice) {
+  write_slab(acc, slabs, tile, tiles, slice);
+  signal(counters, tile);
+}
+
+// Every thread of the block returns once counters[tile] has reached target;
+// what was written before the counts is visible to its loads.
+__device__ __forceinline__ void wait_count(const int* counters, int tile, int target) {
+  if (threadIdx.x == 0) {
+    int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(seen) : "l"(counters + tile)
+                   : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// The thread's float4 `i` of the fragments, i = (mi NI + ni) THREADS +
+// threadIdx.x (elements 2 h + e of acc[mi][ni]), summed over slices
+// [s_begin, s_end) of tile's partials in that order, read from L2, not from a
+// stale L1 line. The loads of the first four slices are in flight together.
+__device__ __forceinline__ float4 slab_sum(const float* __restrict__ slabs, int tile, int tiles,
+                                           int s_begin, int s_end, int i) {
+  const float4* first = reinterpret_cast<const float4*>(slabs) + (size_t)tile * TILE_FLOAT4 + i;
+  const size_t slice_step = (size_t)tiles * TILE_FLOAT4;
+  float4 v[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (s == 0 || s_begin + s < s_end) v[s] = __ldcg(first + (s_begin + s) * slice_step);
+  }
+  float4 sum = v[0];
+  auto add = [&sum](const float4& w) {
+    sum.x += w.x;
+    sum.y += w.y;
+    sum.z += w.z;
+    sum.w += w.w;
+  };
+#pragma unroll
+  for (int s = 1; s < 4; ++s) {
+    if (s_begin + s < s_end) add(v[s]);
+  }
+  for (int s = s_begin + 4; s < s_end; ++s) add(__ldcg(first + s * slice_step));
+  return sum;
 }
 
 constexpr int TILE_STRIDE = BN + 8;  // a row of a staged output tile: conflict-free float2 writes

@@ -14,12 +14,15 @@ energies are NaN. ``shared`` (the orthonormal basis: E == A, S == I) carries
 V = A U, so a step is one product; otherwise (the inducing-point basis, S its
 noise factor) three.
 
-Bound on the H100: operations, 2 M^2 J flops per product plus about 41 per
-element of U (Philox, Box-Muller, the update, the energy); A, E, S and U stay
-in L2. The kernel queues 3 launches per shared step and 4 per non-shared step
-on the current stream (3 with ``zero_noise``) and never synchronises inside
-the run; the stopper state lives on the card. Operands and sums are fp32 on
-the CUDA cores, like B3.
+Bound on the H100: operations, 2 M^2 J flops per product, run as three TF32
+products on the tensor cores (3xTF32, ``csrc/tc_product.cuh``: fp32-level
+error), plus about 41 per element of U (Philox, Box-Muller, the update, the
+energy) on the CUDA cores; A, E, S and U stay in L2. The kernel is one
+cooperative launch a run on the current stream, whatever T: a persistent
+grid of the blocks the card holds at once, one phase of products and one
+grid-wide barrier a step, the stopper state on the card. Its work items,
+and the scratch they need, come from :func:`phase`; each block runs each of
+its items through the product's ring of asynchronous copies.
 
 :func:`quadratic_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`quadratic_train_reference` only for
@@ -33,7 +36,7 @@ import math
 
 import torch
 
-from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.ops.cuda import build, tc_product
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
     run_with_stopper,
@@ -44,16 +47,48 @@ from projected_langevin_sampling_torch.utils.early_stopper import (
 # update (4) and the energy term (6)
 OPS_PER_ELEMENT_STEP = 31 + 4 + 6
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong, ctypes.c_int,
-    ctypes.c_void_p,
-]
+_SIGNATURES = {
+    "plst_quadratic_train": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong, ctypes.c_int,
+        ctypes.c_void_p,
+    ],
+    "plst_quadratic_coresident": [ctypes.POINTER(ctypes.c_int)],
+    "plst_quadratic_record": [ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_longlong)],
+}
 
 
 def step_operations(m: int, j: int, shared: bool) -> int:
     """fp32 operations of one training step, for the bound."""
     products = 1 if shared else 3
     return products * 2 * m * m * j + OPS_PER_ELEMENT_STEP * m * j
+
+
+def phase(m: int, j: int, shared: bool, zero_noise: bool) -> tc_product.Phase:
+    """The work items of one step of the kernel: A U and, when not shared,
+    E U and (with noise) S eps, each cut into the same slices of the depth M."""
+    return tc_product.persistent_phase(m, j, m, products=1 if shared else 2 if zero_noise else 3)
+
+
+def coresident_blocks(device=None) -> int:
+    """Blocks of the run kernel that the card holds at once: the largest grid
+    its cooperative launch takes."""
+    with torch.cuda.device(device):
+        blocks = ctypes.c_int(0)
+        lib = build.load("quadratic_train", _SIGNATURES)
+        build.check(lib.plst_quadratic_coresident(ctypes.byref(blocks)), "quadratic_train blocks")
+    return blocks.value
+
+
+def record(device=None) -> tuple[int, float]:
+    """The card's own record of the run kernel: the runs it has started on
+    the device so far and the device milliseconds of the last one (block 0's
+    start to its end). Waits for the device."""
+    with torch.cuda.device(device):
+        runs, last_ns = ctypes.c_ulonglong(0), ctypes.c_longlong(0)
+        lib = build.load("quadratic_train", _SIGNATURES)
+        build.check(lib.plst_quadratic_record(ctypes.byref(runs), ctypes.byref(last_ns)),
+                    "quadratic_train record")
+    return runs.value, last_ns.value / 1e6
 
 
 def quadratic_train_reference(
@@ -72,6 +107,7 @@ def quadratic_train_reference(
     zero_noise: bool = False,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    product=torch.matmul,
 ):
     """The plain PyTorch loop over T doing the kernel's math in the input's
     dtype, with the early-stopper carry.
@@ -79,7 +115,9 @@ def quadratic_train_reference(
     Noise per step: zeros with ``zero_noise``; else ``S @ noise[t]`` for
     injected standard normals ``noise`` (T, M, J), the z of the basis's
     update noise S z (S = I when ``noise_factor`` is None); else normals from
-    ``generator``. Returns ``(u, energies, recorded, steps_run)``."""
+    ``generator``. ``product`` computes A U, S z and E U (the tests put the
+    emulation of the kernel's 3xTF32 product there). Returns ``(u, energies,
+    recorded, steps_run)``."""
     dtype, device = u0.dtype, u0.device
     root2eta = math.sqrt(2.0 * eta)
     b_col = b[:, None]
@@ -88,19 +126,19 @@ def quadratic_train_reference(
     def step(t, state):
         # shared: v carries A u, one product serves this drift and the last energy
         u, v = state
-        drift = (v if shared else a @ u) - b_col
+        drift = (v if shared else product(a, u)) - b_col
         u_new = u - eta * drift
         if not zero_noise:
             z = noise[t] if noise is not None else torch.randn(
                 u.shape, generator=generator, dtype=dtype, device=device
             )
-            eps = z if noise_factor is None else noise_factor @ z
+            eps = z if noise_factor is None else product(noise_factor, z)
             u_new = u_new + root2eta * eps
-        v_new = mat @ u_new
+        v_new = product(mat, u_new)
         energy_j = 0.5 * torch.sum(u_new * v_new, dim=0) - energy_bias @ u_new + e_const
         return (u_new, v_new), torch.mean(energy_j)
 
-    v0 = a @ u0 if shared else torch.zeros_like(u0)
+    v0 = product(a, u0) if shared else torch.zeros_like(u0)
     (u, _), energies, recorded, steps_run = run_with_stopper(
         step, (u0, v0), num_steps, eta, patience, dtype, device
     )
@@ -165,31 +203,30 @@ def quadratic_train(
     f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
     a32, b32, e32, eb32 = f32(a), f32(b), f32(energy_matrix), f32(energy_bias)
     s32 = a32 if noise_factor is None else f32(noise_factor)  # unread when shared or noiseless
-    tiles = -(-m // 64) * -(-j // 64)  # BM = BN = 64
+    items = phase(m, j, shared, zero_noise)
     with torch.cuda.device(device):
         u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
         u_b = torch.empty_like(u_a)
-        v = torch.empty_like(u_a)
-        eps = torch.empty_like(u_a)
-        partials = torch.empty(tiles, dtype=torch.float64, device=device)
+        # the normals of even and odd steps; unread without noise
+        eps = u_b if zero_noise else torch.empty((2, m, j), device=device)
+        slabs = torch.empty(items.slab, dtype=torch.float32, device=device)
+        arrived = torch.empty(items.tiles, dtype=torch.int32, device=device)
+        # one energy partial a block in two sets; the grid never exceeds the items
+        partials = torch.empty(2 * items.items, dtype=torch.float64, device=device)
         energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
-        state = torch.empty(4, dtype=torch.int32, device=device)
-        lib = build.load("quadratic_train")
-        fn = lib.plst_quadratic_train
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        err = fn(
+        lib = build.load("quadratic_train", _SIGNATURES)
+        err = lib.plst_quadratic_train(
             a32.data_ptr(), e32.data_ptr(), s32.data_ptr(), b32.data_ptr(), eb32.data_ptr(),
-            u_a.data_ptr(), u_b.data_ptr(), v.data_ptr(), eps.data_ptr(), partials.data_ptr(),
-            energies.data_ptr(), state.data_ptr(), m, j, int(num_steps), int(shared),
-            float(eta), float(patience), float(e_const), int(seed), int(zero_noise),
-            torch.cuda.current_stream().cuda_stream,
+            u_a.data_ptr(), u_b.data_ptr(), eps.data_ptr(), slabs.data_ptr(),
+            arrived.data_ptr(), partials.data_ptr(), energies.data_ptr(), m, j, int(num_steps),
+            int(shared), items.slices, float(eta), float(patience), float(e_const), int(seed),
+            int(zero_noise), torch.cuda.current_stream().cuda_stream,
         )
         build.check(err, "quadratic_train kernel")
         quadratic_train.launches += 1
-        u = u_a if num_steps % 2 == 0 else u_b
         energies = energies.to(dtype)
         recorded, steps_run = replay_early_stopper(energies, eta, patience)
-    return u.to(dtype), energies, recorded, steps_run
+    return u_a.to(dtype), energies, recorded, steps_run
 
 
 quadratic_train.launches = 0

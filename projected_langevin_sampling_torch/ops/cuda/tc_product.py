@@ -1,6 +1,6 @@
 """The tiling of ``csrc/tc_product.cuh``, the tensor-core product of B3
-(``general_train``) and B5 (``fused_update``), and a plain emulation of its
-arithmetic.
+(``general_train``), B4 (``quadratic_train``) and B5 (``fused_update``), and
+a plain emulation of its arithmetic.
 
 The header multiplies fp32 matrices on output tiles of ``TILE_M x TILE_N``
 (64 x 128, 8 warps) through a ring of depth stages of ``TILE_K`` (32), with
@@ -15,6 +15,14 @@ the last block of each tile sums in a fixed order.
 output (one arrival counter and one energy partial each), the slices, and
 the floats of the slabs of partial tiles. The slice count is a function of
 the shape alone (never of the card), so a rerun sums in the same order.
+
+:func:`persistent_phase`, :func:`persistent_grid` and :func:`block_items`
+mirror the partition of B4's persistent kernel (``csrc/quadratic_train.cu``):
+a step is one phase of ``products`` products of one (rows, cols) output,
+each cut into the same slices, and its work items (product, tile, slice),
+item ``(product * slices + slice) * tiles + tile``, go to the blocks in
+turn, block b taking items b, b + grid, ... every step. The grid is the
+card's co-resident block count, capped at the items.
 
 :func:`tf32_rna` and :func:`tf32x3_matmul` repeat the split and the three
 products in plain PyTorch, for the tests; nothing on the main path calls
@@ -41,9 +49,29 @@ class SplitK(NamedTuple):
     slab: int  # floats of the partial tiles (0 for one slice)
 
 
+class Phase(NamedTuple):
+    tiles: int  # output tiles: arrival counters
+    products: int  # products of the phase, each cut into `slices`
+    slices: int  # slices of the depth of each product
+    items: int  # (product, tile, slice) work items: products x slices x tiles
+    slab: int  # floats of the partial tiles: one per item
+
+
 def tiles(rows: int, cols: int) -> int:
     """Output tiles of a (rows, cols) product."""
     return -(-rows // TILE_M) * -(-cols // TILE_N)
+
+
+def _slices(n_tiles: int, depth: int, block_slots: int) -> int:
+    """Slices of a depth shared by ``n_tiles`` output tiles: as many as
+    ``block_slots`` blocks hold, none shallower than ``MIN_SLICE_STAGES``
+    stages unless the depth is, and none empty."""
+    slices = max(1, min(block_slots // n_tiles, depth // (MIN_SLICE_STAGES * TILE_K)))
+    # the kernel's slice depth (tc::slice_depth) is a multiple of TILE_K, so
+    # the last slices may be empty: keep only those that hold depth
+    per_slice = -(-depth // slices)
+    per_slice = -(-per_slice // TILE_K) * TILE_K
+    return -(-depth // per_slice)
 
 
 def split_k(rows: int, cols: int, depth: int) -> SplitK:
@@ -51,13 +79,42 @@ def split_k(rows: int, cols: int, depth: int) -> SplitK:
     one wave of ``BLOCK_SLOTS`` blocks holds, none shallower than
     ``MIN_SLICE_STAGES`` stages unless the depth is."""
     n_tiles = tiles(rows, cols)
-    slices = max(1, min(BLOCK_SLOTS // n_tiles, depth // (MIN_SLICE_STAGES * TILE_K)))
-    # the kernel's slice depth (tc::slice_depth) is a multiple of TILE_K, so
-    # the last slices may be empty: keep only those that hold depth
-    per_slice = -(-depth // slices)
-    per_slice = -(-per_slice // TILE_K) * TILE_K
-    slices = -(-depth // per_slice)
+    slices = _slices(n_tiles, depth, BLOCK_SLOTS)
     return SplitK(n_tiles, slices, slices * n_tiles * TILE_M * TILE_N if slices > 1 else 0)
+
+
+def persistent_phase(rows: int, cols: int, depth: int, products: int = 1,
+                     block_slots: int = BLOCK_SLOTS) -> Phase:
+    """One phase of B4's persistent kernel: ``products`` (rows, cols) outputs
+    over ``depth``, each cut into slices none shallower than
+    ``MIN_SLICE_STAGES`` stages unless the depth is: the fewest slices that
+    leave a block of ``block_slots`` within a tenth of the least depth to
+    multiply (its items times their depth), since every slice adds a partial
+    tile to write and read. Every item writes one, even with one slice."""
+    n_tiles = tiles(rows, cols)
+    loads = {}
+    for wanted in range(1, max(1, depth // (MIN_SLICE_STAGES * TILE_K)) + 1):
+        per_slice = -(-(-(-depth // wanted)) // TILE_K) * TILE_K  # tc::slice_depth
+        slices = -(-depth // per_slice)
+        loads.setdefault(slices, -(-products * slices * n_tiles // block_slots) * per_slice)
+    least = min(loads.values())
+    slices = min(k for k, load in loads.items() if load <= 1.1 * least)
+    items = products * slices * n_tiles
+    return Phase(n_tiles, products, slices, items, items * TILE_M * TILE_N)
+
+
+def persistent_grid(phase: Phase, coresident: int = BLOCK_SLOTS) -> int:
+    """The grid of a persistent run: the co-resident blocks, capped at the
+    items of its phase."""
+    return min(coresident, phase.items)
+
+
+def block_items(block: int, grid: int, phase: Phase):
+    """The (product, tile, slice) items of ``phase`` that ``block`` of
+    ``grid`` owns, in the order it runs them."""
+    for item in range(block, phase.items, grid):
+        tile, slice_ = item % phase.tiles, item // phase.tiles
+        yield slice_ // phase.slices, tile, slice_ % phase.slices
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:

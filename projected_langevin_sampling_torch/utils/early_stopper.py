@@ -88,8 +88,11 @@ def replay_early_stopper(
     t = energies.shape[0]
     if t == 0:
         return torch.zeros(0, dtype=torch.bool, device=device), torch.tensor(0, dtype=torch.int32)
-    step_size = torch.tensor(step_size, dtype=dtype, device=device)
-    patience = torch.tensor(patience, dtype=dtype, device=device)
+    # scalars made on the device (torch.full), not copied from the host: a
+    # copy from pageable host memory waits for the stream, and a kernel's
+    # wrapper calls this right after queueing its run
+    step_size = torch.full((), step_size, dtype=dtype, device=device)
+    patience = torch.full((), patience, dtype=dtype, device=device)
     inf = torch.full((1,), math.inf, dtype=dtype, device=device)
 
     finite = torch.isfinite(energies)
@@ -103,7 +106,8 @@ def replay_early_stopper(
     sim_time = step_size * (idx - last_improved).to(dtype)
     stop_here = (~finite) | ((~improved) & (sim_time >= patience))
     stop_idx = torch.where(
-        stop_here.any(), torch.argmax(stop_here.to(torch.int32)), torch.tensor(t, device=device)
+        stop_here.any(), torch.argmax(stop_here.to(torch.int32)),
+        torch.full((), t, dtype=torch.int64, device=device),
     )
     recorded = idx < stop_idx
     steps_run = torch.clamp(stop_idx + 1, max=t).to(torch.int32)

@@ -1,5 +1,6 @@
-"""Time B3 (``general_train``) and B5 (``fused_update``) of the PyTorch port at
-the headline shape, kernel by kernel, for one checkout of the port.
+"""Time B3 (``general_train``), B4 (``quadratic_train``) and B5
+(``fused_update``) of the PyTorch port at the headline shape, kernel by
+kernel, for one checkout of the port.
 
     python3 scripts/b3_b5_breakdown.py [--root DIR] [--label NAME]
 
@@ -9,10 +10,11 @@ checkout), so that two checkouts, e.g. a parent commit unpacked with
 turns on one card (parent, change, change, parent). The inputs are those of
 ``chip_smoke.py`` phases 6(e) and 9 (whose helpers it reuses from this
 checkout): B3 on the headline classification cell (smoothed Bernoulli,
-preconditioned, N=5000, M_k=512, J=1000, 200 steps with noise) and B5 on the
-IPB matrix prior with the Bernoulli closed form. ``--target-blocks`` sets
-the split-K target of the tensor-core product (``ops/cuda/tc_product.py``),
-where the checkout has one. Needs one CUDA card; prints one JSON line.
+preconditioned, N=5000, M_k=512, J=1000, 200 steps with noise), B4 on phase
+8(e)'s runs (the IPB system non-shared and the ONB system shared, M=512,
+J=1000, 20,000 steps with noise; call time only, which every checkout's B4
+gives the same way) and B5 on the IPB matrix prior with the Bernoulli closed
+form. Needs one CUDA card; prints one JSON line.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ def main() -> int:
     import projected_langevin_sampling_torch as pt
     from projected_langevin_sampling_torch.ops.cuda import fused_update as fused
     from projected_langevin_sampling_torch.ops.cuda import general_train as gen
+    from projected_langevin_sampling_torch.ops.cuda import quadratic_train as quad
     from projected_langevin_sampling_torch.training import general_fused_cost_spec
 
     # chip_smoke's helpers, from this checkout (the package is already bound)
@@ -96,6 +99,16 @@ def main() -> int:
 
     out["b5"] = {"call_ms": call_ms, "device_ms": split,
                  "host_ms_per_call": min(host_ms() for _ in range(3))}
+
+    # B4 at the headline, as phase 8(e): non-shared (IPB) and shared (ONB)
+    gauss = pt.GaussianCost(y_train=y, observation_noise=torch.tensor(0.1, device="cuda"))
+    u0 = ipb.initialise_particles(smoke.J, generator=0)
+    out["b4"] = {}
+    for name, b4_basis in (("non_shared", ipb), ("shared", smoke.headline_basis(pt, xg, zg))):
+        b4_args, b4_kw = smoke.quadratic_args(b4_basis, gauss)
+        b4_kw = dict(b4_kw, eta=smoke.STEP_SIZE, patience=math.inf, num_steps=smoke.STEPS, seed=1)
+        out["b4"][name] = {
+            "call_ms": smoke.cuda_ms(lambda: quad.quadratic_train(*b4_args, u0, **b4_kw), reps=2)}
     print(json.dumps(out))
     return 0
 
