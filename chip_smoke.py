@@ -20,11 +20,17 @@ each run with the launch counters set to 0 just before it and read just after:
   general body (B5 once per step).
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
-tensor-core instructions (HMMA in ``cuobjdump -sass``) and the tiling of
-their product (``csrc/tc_product.cuh``); phases 6 and 9 split B3's and B5's
-device time by kernel, phases 6, 8 and 9 give the bound on the tensor cores
-beside the fp32 SIMT bound of earlier runs, phase 8 B4's launches per run
-(one), its host enqueue and the device's idle share inside its call, and
+tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
+product (``csrc/tc_product.cuh``), and the op mix of B1's step loop in its
+SASS; phase 2 runs each path of B2 (16-byte stores, scalar stores at a
+ragged edge, the staged path for large D); phase 3 holds B1's draws to a CPU
+mirror of its Philox and Box-Muller and a noisy run at the main path's noise
+scale to the plain loop fed the mirror's normals, checks their tail, splits B1's device
+time into its normals and the rest, and sets the op mix against the measured
+time at the SM clock read beside the run; phases 6 and 9 split B3's and
+B5's device time by kernel, phases 6, 8 and 9 give the bound on the tensor
+cores beside the fp32 SIMT bound of earlier runs, phase 8 B4's launches per
+run (one), its host enqueue and the device's idle share inside its call, and
 phase 9 B5's host time per call.
 
 Any failure raises; there is no CPU fallback.
@@ -41,6 +47,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import runpy
 import shutil
 import subprocess
@@ -58,6 +65,10 @@ sys.path.insert(0, ROOT)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+# B1's MUFU normals against the exact pair at noise scale 1: r^2 = z0^2 +
+# z1^2 within B1_R2_ABS + B1_R2_REL r^2 and the angle within B1_ANGLE of the
+# mirror's (phase 3 (c) gives the reasons)
+B1_R2_ABS, B1_R2_REL, B1_ANGLE = 2.0**-21, 2.0**-18, 2.0**-19
 N, M, J = 5000, 512, 1000  # bench.py's headline shape
 STEPS, STEP_SIZE, N_TEST, CHUNK = 20_000, 1e-4, 4096, 256
 
@@ -116,6 +127,28 @@ def profiled_device_ms(fn, kernel_name, reps: int, warmup: bool = True):
     return sum_measured(split)
 
 
+def profiled_launch_ms(fn, kernel_name, reps):
+    """Mean device milliseconds per launch of the kernels whose names contain
+    ``kernel_name``, over ``reps`` calls of ``fn`` after one warm-up call, and
+    the launches the profiler's trace shows; (None, 0) if it shows none. The
+    mean is over the launches seen, so a trace that drops events (the
+    profiler at times does) does not shrink it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if kernel_name in e.key:
+            total_us += getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+            launches += e.count
+    return (total_us / 1e3 / launches if launches else None), launches
+
+
 def sum_measured(split):
     """The sum of a profiled split, None if no part was measured."""
     parts = [v for v in split.values() if v is not None]
@@ -140,18 +173,97 @@ def tc_bound(products_flops, elementwise_ops, nbytes):
     return terms[term], term
 
 
-def sass_hmma_count(lib_path):
-    """HMMA instructions in a built library's SASS (cuobjdump -sass), None
-    where the toolkit has no cuobjdump."""
+def sass_text(lib_path):
+    """A built library's SASS (cuobjdump -sass), None where the toolkit has no
+    cuobjdump."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     tool = os.path.join(cuda_home, "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
     if tool is None:
         return None
-    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
-                         timeout=300).stdout
-    return sum(line.count("HMMA") for line in out.splitlines())
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
+# Op-mix classes of a loop's SASS, by opcode (the text before the first '.')
+SASS_CLASSES = {
+    "IMAD": ("IMAD",),
+    "LOP3/IADD": ("LOP3", "IADD3", "IADD", "SHF", "LEA", "IABS", "PRMT", "IMNMX", "SGXT"),
+    "FFMA/FMUL/FADD": ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP", "FCHK"),
+    "MUFU": ("MUFU",),
+    "I2F/F2I": ("I2F", "I2FP", "F2I", "F2F", "F2IP", "FRND"),
+    "SHFL": ("SHFL",),
+    "BAR": ("BAR",),
+    "STS/STG": ("STS", "STG"),
+    "branch": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC"),
+}
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+_SASS_TARGET = re.compile(r"(?:^|,)\s*0x([0-9a-f]+)\s*$")
+
+
+def sass_functions(text):
+    """``{mangled name: [(address, opcode, operands), ...]}`` of every function
+    in a library's SASS."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
+        elif cur is not None:
+            instr = _SASS_INSTR.search(line)
+            if instr:
+                cur.append((int(instr.group(1), 16), instr.group(3), instr.group(4)))
+    return funcs
+
+
+def step_loop_mix(entries):
+    """The op mix of a kernel's step loop: the innermost loop (a backward
+    branch with no other inside it) holding a warp shuffle, the largest if
+    several (the compiler may split a loop on a flag). Steps per iteration:
+    one a barrier where the loop holds barriers, else one a five-shuffle warp
+    sum (five SHFL each). Returns ``{class: count per step, "other": ...,
+    "total": ...}`` or None."""
+    index = {addr: i for i, (addr, _, _) in enumerate(entries)}
+    loops = []
+    for i, (_, op, args) in enumerate(entries):
+        target = _SASS_TARGET.search(args) if op.startswith("BRA") else None
+        start = index.get(int(target.group(1), 16), i) if target else i
+        if start < i:  # a branch back: the loop from its target to here
+            loops.append((start, i))
+    innermost = [(a, b) for a, b in loops
+                 if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    best = None
+    for a, b in innermost:
+        ops = [e[1].split(".")[0] for e in entries[a:b + 1]]
+        if "SHFL" in ops and (best is None or len(ops) > len(best)):
+            best = ops
+    if best is None:
+        return None
+    steps = best.count("BAR") or max(1, best.count("SHFL") // 5)
+    mix = {name: sum(op in codes for op in best) / steps for name, codes in SASS_CLASSES.items()}
+    mix["total"] = len(best) / steps
+    mix["other"] = mix["total"] - sum(v for k, v in mix.items() if k != "total")
+    return mix
+
+
+# B1's kernels by the noise they draw (csrc/spectral_train.cu, enum Noise),
+# as their mangled names give the template argument
+B1_KERNELS = {"NoiseE0E": "zero noise", "NoiseE1E": "MUFU normals"}
+
+
+def b1_step_mixes(lib_path):
+    """``{kernel: step-loop op mix}`` of every B1 kernel in a built library,
+    named as in B1_KERNELS where the name says (else mangled); None without
+    cuobjdump."""
+    text = sass_text(lib_path)
+    if text is None:
+        return None
+    return {next((v for k, v in B1_KERNELS.items() if k in name), name): step_loop_mix(entries)
+            for name, entries in sass_functions(text).items() if "spectral_train_kernel" in name}
+
+
+def mix_text(mix):
+    return ", ".join(f"{k} {v:g}" for k, v in mix.items())
 
 
 def headline_inputs(dtype):
@@ -176,11 +288,19 @@ def phase_gram(gram):
         gen = torch.Generator(device="cuda").manual_seed(1)
         ragged1 = torch.randn((333, 7), generator=gen, dtype=dtype, device="cuda")
         ragged2 = torch.randn((1001, 7), generator=gen, dtype=dtype, device="cuda")
+        wide1 = torch.randn((333, 20), generator=gen, dtype=dtype, device="cuda") / 2
+        wide2 = torch.randn((1001, 20), generator=gen, dtype=dtype, device="cuda") / 2
+        # each path of csrc/gram.cu: registers and 16-byte stores (D <= 8, N2 a
+        # multiple of the strip), registers and scalar stores (a ragged N2),
+        # and the staged path (D > 8)
         cases = {
-            "k(Z,X) 512x5000 D=1": (z / 0.01, x / 0.01, False),
-            "ragged 333x1001 D=7": (ragged1, ragged2, False),
-            "same k(Z,Z) 512x512": (z / 0.01, z / 0.01, True),
-            "same ragged 333x333 D=7": (ragged1, ragged1, True),
+            "k(Z,X) 512x5000 D=1, 16-byte stores": (z / 0.01, x / 0.01, False),
+            "k(Z,X) 512x4999 D=1, scalar stores": (z / 0.01, x[:4999] / 0.01, False),
+            "ragged 333x1001 D=7, scalar stores": (ragged1, ragged2, False),
+            "same k(Z,Z) 512x512 D=1, 16-byte stores": (z / 0.01, z / 0.01, True),
+            "same ragged 333x333 D=7, scalar stores": (ragged1, ragged1, True),
+            "staged 333x1001 D=20": (wide1, wide2, False),
+            "same staged 333x333 D=20": (wide1, wide1, True),
         }
         for name, (a, b, same) in cases.items():
             a, b = a.contiguous(), b.contiguous()
@@ -200,8 +320,8 @@ def phase_gram(gram):
     a, b = (z / 0.01).contiguous(), (x / 0.01).contiguous()
     ms = cuda_ms(lambda: gram.ard_gram_scaled(a, b, 1.0), reps=200, warmup=5)
     plain_ms = cuda_ms(lambda: gram.ard_gram_scaled_reference(a, b, 1.0), reps=50, warmup=2)
-    dev_ms = profiled_device_ms(lambda: gram.ard_gram_scaled(a, b, 1.0), "ard_gram_kernel", 50)
-    log(f"  B2 device time k(Z,X) fp32 (profiler): "
+    dev_ms, seen = profiled_launch_ms(lambda: gram.ard_gram_scaled(a, b, 1.0), "ard_gram", 200)
+    log(f"  B2 device time k(Z,X) fp32 (profiler, mean of {seen} launches seen of 200): "
         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
     out_bytes = 4 * M * N
     in_bytes = 4 * (a.numel() + b.numel())
@@ -234,7 +354,7 @@ def _spectral_coeffs(m, eta, rising=False, seed=0):
     return decay, eta * b, sigma, b
 
 
-def phase_spectral(spec):
+def phase_spectral(spec, b1_mixes):
     eta, m, j = 0.01, M, J
     gen = torch.Generator(device="cuda").manual_seed(3)
     w0 = torch.randn((m, j), generator=gen, device="cuda")
@@ -253,7 +373,6 @@ def phase_spectral(spec):
     require(torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6), "spectral W disagrees")
     require(torch.allclose(e_k, e_p, rtol=1e-4), "spectral energies disagree")
     require(int(steps_k) == int(steps_p) == 2000 and bool(rec_k.all()), "spectral steps")
-    res["max_abs_err"] = err_w
 
     # (b) rising energy: the stop is fixed by patience / eta
     decay, shift, sigma, b = _spectral_coeffs(m, eta, rising=True)
@@ -280,15 +399,49 @@ def phase_spectral(spec):
     require(bool(torch.equal(w_stop, w_exact)), "rerun did not reproduce the Philox draws")
     log(f"  B1 (b) noisy stop at {int(s_stop)} steps reproduces the same draws on rerun")
 
-    # (c) the law of the noise
+    # (c) the draws: W after one step from 0 with decay = shift = 0 and noise
+    # scale 1
     ones = torch.ones(5000, device="cuda")
     w_z = torch.zeros((5000, 1000), device="cuda")
-    eps, _, _, _ = spec.spectral_train(w_z, 0 * ones, 0 * ones, ones, 0 * ones, eta=eta,
-                                       patience=math.inf, e_const=0.0, num_steps=1,
-                                       noise_scale=1.0, seed=5)
+
+    def draws(**kw):
+        return spec.spectral_train(w_z, 0 * ones, 0 * ones, ones, 0 * ones, eta=eta,
+                                   patience=math.inf, e_const=0.0, num_steps=1, noise_scale=1.0,
+                                   seed=5, **kw)[0]
+
+    eps = draws()
     mean, var = float(eps.double().mean()), float(eps.double().var())
     log(f"  B1 (c) 5e6 Philox normals: mean {mean:.2e}, variance {var:.5f}")
     require(abs(mean) < 5e-3 and abs(var - 1) < 5e-3, "Philox normals off N(0, 1)")
+    # the tail: P(|z| > 4) = 6.334e-5, a count of 316.7 in 5e6 with a spread of 17.8
+    n_eps, p_tail = eps.numel(), math.erfc(4 / math.sqrt(2))
+    tail = int((eps.abs() > 4).sum())
+    tail_sd = math.sqrt(n_eps * p_tail * (1 - p_tail))
+    log(f"  B1 (c) |z| > 4: {tail} of {n_eps} draws, share {tail / n_eps:.4e} against "
+        f"{p_tail:.4e} ({(tail - n_eps * p_tail) / tail_sd:+.2f} spreads)")
+    require(abs(tail - n_eps * p_tail) <= 5 * tail_sd, "the normals' tail is off")
+    # against the CPU mirror (Philox and Box-Muller in fp64) on the first 1e6
+    # elements. The kernel's MUFU normals (fast_pair in csrc/spectral_train.cu),
+    # pair by pair: r^2 = z0^2 + z1^2 within B1_R2_ABS + B1_R2_REL r^2 (log2:
+    # 2^-22 absolute on [0.5, 1], 2 ulp below; times 2 ln 2, and the clamp at
+    # 0; the root 1 ulp; sin and cos 2^-21 absolute each, so cos^2 + sin^2
+    # within 2^-19.5 of 1; the products' rounding), and the angle atan2(z1,
+    # z0) within B1_ANGLE (2 pi u2 - pi rounded in fp32, 2^-20.8; the sin and
+    # cos errors, 2^-20.6) where r^2 > 2^-18 (at r = 0, from u1 = 1, there is
+    # no angle).
+    n_mirror = 10**6
+    groups = np.arange(n_mirror // 4)
+    r2_m, th_m = (a.reshape(-1) for a in spec.mirror_box_muller(5, groups, 0))
+    z_k = eps.flatten()[:n_mirror].double().cpu().numpy().reshape(-1, 2)
+    r2_k, th_k = z_k[:, 0] ** 2 + z_k[:, 1] ** 2, np.arctan2(z_k[:, 1], z_k[:, 0])
+    r2_ratio = float(np.max(np.abs(r2_k - r2_m) / (B1_R2_ABS + B1_R2_REL * r2_m)))
+    d_th = np.abs(np.remainder(th_k - th_m + math.pi, 2 * math.pi) - math.pi)[r2_m > 2.0**-18]
+    th_ratio = float(np.max(d_th) / B1_ANGLE)
+    log(f"  B1 (c) against the CPU mirror over {n_mirror} draws (largest error over its "
+        f"tolerance): r^2 {r2_ratio:.3f}, angle {th_ratio:.3f}; largest |r^2 error| "
+        f"{float(np.max(np.abs(r2_k - r2_m))):.3e}, |angle error| {float(np.max(d_th)):.3e}")
+    require(r2_ratio <= 1 and th_ratio <= 1, "the kernel's normals disagree with the mirror")
+
     decay, shift, sigma, b = _spectral_coeffs(m, eta, seed=9)
     w_t, _, _, _ = spec.spectral_train(w0, decay, shift, sigma, b, eta=eta, patience=math.inf,
                                        e_const=0.0, num_steps=5000,
@@ -300,23 +453,28 @@ def phase_spectral(spec):
     z_max = float(torch.max(z_mean.abs().max(), z_var.abs().max()))
     log(f"  B1 (c) stationary law over {m} rows, J={j}, T=5000: max |z| = {z_max:.2f}")
     require(z_max < 6, "rows do not follow the Euler stationary law")
+    res["max_abs_err"] = phase_spectral_noisy(spec, w0)
 
     # time at the main path's shape: one whole run of 20000 steps
     decay, shift, sigma, b = _spectral_coeffs(m, 1e-4)
     kw = dict(eta=1e-4, patience=math.inf, e_const=0.0, num_steps=STEPS,
               noise_scale=math.sqrt(2e-4))
-    res["ms"] = cuda_ms(
-        lambda: spec.spectral_train(w0, decay, shift, sigma, b, seed=1, **kw), reps=3
-    )
+
+    def run(**extra):
+        return spec.spectral_train(w0, decay, shift, sigma, b, seed=1, **kw, **extra)
+
+    res["ms"] = cuda_ms(run, reps=3)
     res["plain_ms"] = cuda_ms(
         lambda: spec.spectral_train_reference(w0, decay, shift, sigma, b, **kw), reps=1, warmup=0
     )
-    dev_ms = profiled_device_ms(
-        lambda: spec.spectral_train(w0, decay, shift, sigma, b, seed=1, **kw),
-        "spectral_train_kernel", 2,
-    )
-    log(f"  B1 device time T={STEPS} (profiler): "
-        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}")
+    # device time with the kernel's normals and with none: the second is the
+    # update, the energy, the reduction and the barriers
+    dev, seen = {}, {}
+    for name, extra in (("MUFU normals", {}), ("zero noise", {"zero_noise": True})):
+        dev[name], seen[name] = profiled_launch_ms(lambda: run(**extra), "spectral_train_kernel", 3)
+    log(f"  B1 device time T={STEPS} (profiler, mean of the launches seen of 3, one a run): "
+        + ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'} ({seen[k]} seen)"
+                    for k, v in dev.items()))
     elem_steps = m * j * STEPS
     bound_ops_ms = 1e3 * elem_steps * spec.OPS_PER_ELEMENT_STEP / FP32_OPS_PER_S
     bound_bytes_ms = 1e3 * 4 * (2 * m * j + 4 * m + STEPS) / HBM_BYTES_PER_S
@@ -325,7 +483,107 @@ def phase_spectral(spec):
     log(f"  B1 time M={m} J={j} T={STEPS}: kernel {res['ms']:.3f} ms, plain "
         f"{res['plain_ms']:.1f} ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}, "
         f"{spec.OPS_PER_ELEMENT_STEP} ops per element-step)")
+
+    # instruction slots: the step loop's SASS a step (phase 1) against the
+    # measured time, at the SM clock sampled beside the run; an SM dispatches
+    # 4 warp instructions a clock (128 thread slots) and 16 MUFU results a clock
+    mhz = sampled_sm_clock_mhz(run, seconds=2.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  SM clock under B1 (nvidia-smi, median): "
+        f"{'not measured' if mhz is None else f'{mhz:.0f} MHz'}; {sms} SMs")
+    for name, mix in (b1_mixes or {}).items():
+        if mix is None or mhz is None or name not in dev:
+            continue
+        slots = mix["total"] / spec.ELEMENTS_PER_THREAD
+        clocks = 1e3 * elem_steps / (sms * mhz * 1e6)  # ms per clock-per-element-step an SM
+        measured = dev[name]
+        log(f"  B1 instruction-slot estimate, {name}: {slots:.2f} slots an element-step -> "
+            f"{clocks * slots / 128:.3f} ms dispatching, {clocks * mix['MUFU'] / spec.ELEMENTS_PER_THREAD / 16:.3f} "
+            f"ms on the MUFU pipe; measured "
+            + ("not measured" if measured is None else
+               f"{measured:.3f} ms = {128 * measured / clocks:.1f} slots an element-step")
+            + f"; the bound counts {spec.OPS_PER_ELEMENT_STEP} operations")
     return res
+
+
+def phase_spectral_noisy(spec, w0, steps=64, seed=21, eta=1e-4):
+    """(d) B1 as the main path runs it, its MUFU normals at the noise scale
+    sqrt(2 eta), for ``steps`` steps at the headline M, J, against the plain
+    loop in fp64 fed the mirror's exact normals of the same seed
+    (``spectral_train.mirror_noise``); returns max |W - W_plain|.
+
+    Tolerance, elementwise and step by step: a draw s z is off by at most
+    s (r - sqrt(max(r^2 - e, 0)) + (r + sqrt(e)) B1_ANGLE) with e = B1_R2_ABS
+    + (B1_R2_REL + 2^-22) r^2, the vector of (c)'s r^2 and angle tolerances
+    (2^-22 more for the noise scale rounded to fp32 and folded into r^2 by two
+    more roundings); the update's three fp32 roundings add 2^-24 of each
+    intermediate's size, and an error carries to the next step times |decay|.
+    An energy is off by at most the sum over elements of |sigma w - b| dW +
+    sigma dW^2 / 2 and of the fp32 sums' rounding: at most 300 adds in a row
+    (8 a thread, 5 a warp, 8 a block, the blocks' sum) of 2^-24 of the terms'
+    sizes, over J."""
+    m, j = w0.shape
+    decay, shift, sigma, b = _spectral_coeffs(m, eta)
+    s = math.sqrt(2 * eta)
+    kw = dict(eta=eta, patience=math.inf, e_const=0.0, num_steps=steps, noise_scale=s)
+    w_k, e_k, _, _ = spec.spectral_train(w0, decay, shift, sigma, b, seed=seed, **kw)
+    noise = torch.from_numpy(spec.mirror_noise(seed, m, j, steps)).cuda()
+    w0_d, d, sh, sg, bb = (t.double() for t in (w0, decay, shift, sigma, b))
+    eye = torch.eye(m, dtype=torch.float64, device="cuda")
+    w_p, e_p, _, _ = spec.spectral_train_reference(w0_d, d, sh, sg, bb, noise=noise, q_in=eye,
+                                                   **kw)
+    # the bounds, along the same recursion in fp64
+    u = 2.0**-24
+    d, sh, sg, bb = d[:, None], sh[:, None], sg[:, None], bb[:, None]
+    w, dw_max = w0_d, torch.zeros_like(w0_d)
+    de_max = torch.empty(steps, dtype=torch.float64, device="cuda")
+    for t in range(steps):
+        z = noise[t]
+        r2 = (z.reshape(-1, 2) ** 2).sum(1, keepdim=True).expand(-1, 2).reshape(m, j)
+        e = B1_R2_ABS + (B1_R2_REL + 2.0**-22) * r2
+        r = r2.sqrt()
+        draw = s * (r - (r2 - e).clamp(min=0).sqrt() + (r + e.sqrt()) * B1_ANGLE)
+        dw = d * w
+        w = dw + sh + s * z
+        dw_max = d.abs() * dw_max + draw + u * (dw.abs() + (dw + sh).abs() + w.abs() + 3 * dw_max)
+        sizes = (w.abs() + dw_max) * (0.5 * sg * (w.abs() + dw_max) + bb.abs())
+        de_max[t] = (((sg * w - bb).abs() * dw_max + 0.5 * sg * dw_max**2).sum()
+                     + 301 * u * sizes.sum()) / j
+    require(torch.allclose(w, w_p, rtol=1e-12, atol=0.0),
+            "the bound's recursion is not the plain loop's")
+    de_max += u * e_p.abs()  # the division by J in fp32
+    err_w, err_e = (w_k.double() - w_p).abs(), (e_k.double() - e_p).abs()
+    ratio_w, ratio_e = float((err_w / dw_max).max()), float((err_e / de_max).max())
+    log(f"  B1 (d) noisy, T={steps} at noise scale {s:.4g}, against the plain loop on the "
+        f"mirror's normals: max|dW| = {float(err_w.max()):.3e} ({ratio_w:.3f} of its bound, "
+        f"largest bound {float(dw_max.max()):.3e}), max|dE| = {float(err_e.max()):.3e} "
+        f"({ratio_e:.3f} of its bound)")
+    require(ratio_w <= 1, "noisy B1 disagrees with the plain loop on the mirror's normals")
+    require(ratio_e <= 1, "noisy B1's energies disagree with the plain loop's")
+    return float(err_w.max())
+
+
+def sampled_sm_clock_mhz(fn, seconds):
+    """The median SM clock in MHz that nvidia-smi reads every 100 ms while
+    ``fn`` runs over and over for ``seconds``; None without a reading."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    readings = []
+    for line in out.splitlines()[1:]:  # the first may predate the load
+        try:
+            readings.append(float(line))
+        except ValueError:
+            pass
+    return float(np.median(readings)) if readings else None
 
 
 # --------------------------------------------------------------------------
@@ -361,7 +619,7 @@ def phase_main_path(pt, gram, spec):
     t3 = time.perf_counter()
     launches = {"gram": gram.ard_gram_scaled.launches, "spectral": spec.spectral_train.launches}
 
-    require(launches["spectral"] >= 1, "train_pls did not launch the spectral kernel")
+    require(launches["spectral"] == 1, f"train_pls launched B1 {launches['spectral']} times")
     require(launches["gram"] >= 2, "the build did not launch the gram kernel")
     require(len(energies) == STEPS and all(math.isfinite(e) for e in energies), "energies")
     require(energies[-1] < energies[0], "energy did not fall")
@@ -1056,7 +1314,8 @@ def phase_ipb_path(pt, counters):
         (trained, energies), train_s, counts = run_counted(
             counters, lambda: pt.train_pls(pls, particles, STEPS, STEP_SIZE, generator=0,
                                            fast_path=fast_path))
-        require(counts[kernel] >= 1, f"train_pls({fast_path}) did not launch {kernel}")
+        require(counts[kernel] == 1, f"train_pls({fast_path}) launched {kernel} {counts[kernel]} "
+                                     "times, not once")
         require(len(energies) == STEPS and all(math.isfinite(e) for e in energies), "energies")
         require(energies[-1] < energies[0], "energy did not fall")
         samples, predict_s, _ = run_counted(
@@ -1128,15 +1387,23 @@ def main() -> int:
         with open(build.library_path(name) + ".log") as f:
             out = f.read()
         for line in out.splitlines():
-            # B4's kernel by name: its registers, spills and shared memory
+            # B1's and B4's kernels by name: their registers, spills and shared memory
             if ("registers" in line or "spill" in line
-                    or (name == "quadratic_train" and "entry function" in line)):
+                    or (name in ("quadratic_train", "spectral_train") and "entry function" in line)):
                 log(f"  {name}: {line.strip()}")
     for name in ("general_train", "quadratic_train", "fused_update"):
-        hmma = sass_hmma_count(build.library_path(name))
+        text = sass_text(build.library_path(name))
+        hmma = None if text is None else text.count("HMMA")
         log(f"  {name}: " + ("HMMA not measured (no cuobjdump)" if hmma is None
                               else f"{hmma} HMMA instructions in its SASS"))
         require(hmma is None or hmma > 0, f"{name} holds no tensor-core instruction")
+    b1_mixes = b1_step_mixes(build.library_path("spectral_train"))
+    for kernel, mix in (b1_mixes or {}).items():
+        require(mix is not None, f"no step loop found in {kernel}'s SASS")
+        log(f"  spectral_train {kernel}: step loop, SASS instructions a step per thread: "
+            f"{mix_text(mix)}")
+    if b1_mixes is None:
+        log("  spectral_train: step-loop op mix not measured (no cuobjdump)")
     log(f"  tensor-core product (csrc/tc_product.cuh): {tc.TILE_M} x {tc.TILE_N} tiles, stages of "
         f"{tc.TILE_K}; at the headline B3's update splits N into "
         f"{tc.split_k(M, J, N).slices} slices and B5's matrix-prior update its depth into "
@@ -1152,7 +1419,7 @@ def main() -> int:
 
     gram_res = phase("phase 2: B2 gram against its plain version", phase_gram, gram)
     spec_res = phase("phase 3: B1 spectral trainer against its plain version and its law",
-                     phase_spectral, spec)
+                     phase_spectral, spec, b1_mixes)
     launches = phase(f"phase 4: main path, N={N}, M={M}, J={J}, fp32, {STEPS} steps",
                      phase_main_path, pt, gram, spec)
 

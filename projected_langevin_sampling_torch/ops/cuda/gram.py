@@ -6,9 +6,11 @@ TPU kernel omits: the cross term in true fp32 or fp64, the distance clamped
 at 0, and an exact-zero diagonal for a same-input gram.
 
 Bound on the H100: the output bytes (a few dozen operations per element for
-D <= 20 against 4 or 8 bytes written). The kernel stages 32-row tiles of both
-inputs in shared memory, loops over D in registers and writes each output
-once, a warp to a contiguous line; see the note in ``csrc/gram.cu``.
+D <= 20 against 4 or 8 bytes written). For small D a thread holds a strip
+of 16 bytes of columns in registers and writes each of its rows' strips with
+one 16-byte store, with no shared memory and no barrier; larger D stages
+32-row tiles of both inputs in shared memory. The kernel's entry point picks
+the path, the grid and the store width; see the note in ``csrc/gram.cu``.
 
 :func:`ard_gram_scaled` launches the kernel for CUDA tensors and uses the
 plain version only for tensors that lie on the CPU.
@@ -22,7 +24,6 @@ import torch
 
 from projected_langevin_sampling_torch.ops.cuda import build
 
-_TILE = 32  # rows of x1 per block in csrc/gram.cu; gridDim.y is at most 65535
 _ENTRY = {torch.float32: "plst_ard_gram_f32", torch.float64: "plst_ard_gram_f64"}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
     ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
@@ -70,15 +71,13 @@ def ard_gram_scaled(
     n2 = x2.shape[0]
     if same and n1 != n2:
         raise ValueError("ard_gram_scaled: same=True needs one input")
-    if -(-n1 // _TILE) > 65535:
-        raise ValueError(f"ard_gram_scaled: N1={n1} exceeds the kernel's grid")
     out = torch.empty((n1, n2), dtype=x1.dtype, device=x1.device)
     with torch.cuda.device(x1.device):  # the launch goes to the current device
         err = _entry(x1.dtype)(
             x1.data_ptr(), x2.data_ptr(), out.data_ptr(), n1, n2, d,
             float(outputscale), int(same), torch.cuda.current_stream().cuda_stream,
         )
-    build.check(err, "ard_gram kernel")
+    build.check(err, f"ard_gram kernel (N1={n1}, N2={n2}, D={d})")
     ard_gram_scaled.launches += 1
     return out
 

@@ -14,15 +14,16 @@ freeze after it and later energies are NaN.
 
 Bound on the H100: operations (Philox, Box-Muller and a few FMAs per
 element-step; W is read and written once per run). The kernel keeps the
-particles in registers for all T steps, four elements to a thread, and draws
+particles in registers for all T steps, eight elements to a thread, and draws
 its normals from a Philox4x32-10 written into the kernel and counted on
-(element group, step). Blocks cannot share a step's energy without a
-grid-wide sync, so this wrapper runs two passes: the kernel writes one
-partial energy per (step, block), the wrapper sums them, replays the early
-stopper and, if the stop falls before the last step, reruns steps 0..stop
-from W0 on the same counters. With infinite patience there is one pass.
-Unlike the TPU kernel there is no resident-size limit: nothing needs the
-whole matrix in one place.
+(group of four elements, step), through MUFU approximations of log2, sqrt,
+sin and cos. :func:`mirror_normals` computes the same draws on the CPU in
+fp64. Blocks cannot share a step's energy without a grid-wide sync,
+so this wrapper runs two passes: the kernel writes one partial energy per
+(block, step), the wrapper sums them, replays the early stopper and, if the
+stop falls before the last step, reruns steps 0..stop from W0 on the same
+counters. With infinite patience there is one pass. Unlike the TPU kernel
+there is no resident-size limit: nothing needs the whole matrix in one place.
 
 :func:`spectral_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit as on the TPU, and runs :func:`spectral_train_reference`
@@ -32,7 +33,9 @@ only for tensors that lie on the CPU.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from projected_langevin_sampling_torch.ops.cuda import build
@@ -42,8 +45,8 @@ from projected_langevin_sampling_torch.utils.early_stopper import (
 )
 
 THREADS = 256  # csrc/spectral_train.cu: threads per block
-ELEMENTS_PER_THREAD = 4  # one Philox call gives the four normals of a thread
-# Steps per launch: bounds the (steps, blocks) partial-energy buffer, and lets
+ELEMENTS_PER_THREAD = 8  # two groups of four, one Philox call each
+# Steps per launch: bounds the (blocks, steps) partial-energy buffer, and lets
 # the wrapper stop launching once the stopper has fired.
 STEPS_PER_LAUNCH = 65536
 # Operations per element-step, for the bound in PERF.md and chip_smoke.py:
@@ -55,9 +58,87 @@ STEPS_PER_LAUNCH = 65536
 OPS_PER_ELEMENT_STEP = 25 + 6 + 4 + 6
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
 ]
+
+# Philox4x32-10 as csrc/philox.cuh has it (Random123's multipliers and Weyl
+# key increments)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def num_blocks(total: int) -> int:
+    """Blocks of the kernel's grid for ``total`` elements: THREADS threads of
+    ELEMENTS_PER_THREAD consecutive elements each; the last block's tail is
+    idle."""
+    return -(-total // (THREADS * ELEMENTS_PER_THREAD))
+
+
+def step_energies(partials: torch.Tensor, n: int, j: int, e_const: float) -> torch.Tensor:
+    """The energies of a launch's first ``n`` steps from its (blocks, steps)
+    partial buffer: the blocks' partials of a step summed, over J, plus the
+    constant."""
+    return partials[:, :n].sum(dim=0) / j + e_const
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 on the CPU: ``ctr`` four arrays of 32-bit words (any
+    integer dtype, broadcast together), ``key`` two; returns the four output
+    words as uint64 arrays. Products are 32 x 32 -> 64 bits in uint64, which
+    cannot overflow."""
+    x, y, z, w = (np.asarray(c, dtype=np.uint64) & _MASK32 for c in ctr)
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    m0, m1 = (np.uint64(m) for m in _PHILOX_M)
+    for _ in range(10):
+        p0, p1 = m0 * x, m1 * z
+        x, y, z, w = ((p1 >> np.uint64(32)) ^ y ^ np.uint64(k0), p1 & np.uint64(_MASK32),
+                      (p0 >> np.uint64(32)) ^ w ^ np.uint64(k1), p0 & np.uint64(_MASK32))
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return x, y, z, w
+
+
+def uniform24(bits):
+    """The kernel's uniform in (0, 1] from the top 24 bits of each word:
+    ((bits >> 8) + 1) 2^-24, exact in fp64; all-ones bits give exactly 1."""
+    return ((np.asarray(bits, dtype=np.uint64) >> np.uint64(8)) + np.uint64(1)) * 2.0**-24
+
+
+def mirror_box_muller(seed: int, groups, step: int):
+    """Box-Muller radii squared and angles of the kernel's draws, in fp64:
+    for each group of four elements, Philox on the counter (group lo, group
+    hi, step, 0) with the seed's key, and one pair from words (x, y) and one
+    from (z, w): ``r2 = -2 ln u1``, ``theta = 2 pi u2 - pi``. Returns ``(r2,
+    theta)``, each (len(groups), 2)."""
+    g = np.asarray(groups, dtype=np.uint64)
+    bits = philox4x32_10((g & np.uint64(_MASK32), g >> np.uint64(32), np.uint64(step), 0),
+                         (seed & _MASK32, seed >> 32))
+    u = [uniform24(b) for b in bits]
+    r2 = np.stack([-2.0 * np.log(u[0]), -2.0 * np.log(u[2])], axis=1)
+    theta = np.stack([2.0 * math.pi * u[1] - math.pi, 2.0 * math.pi * u[3] - math.pi], axis=1)
+    return r2, theta
+
+
+def mirror_normals(seed: int, groups, step: int) -> np.ndarray:
+    """The kernel's four normals of each group at ``step``, in fp64,
+    (len(groups), 4): element 4 g + k of the flattened (M, J) particles draws
+    entry k of group g."""
+    r2, theta = mirror_box_muller(seed, groups, step)
+    r = np.sqrt(r2)
+    z = np.empty((len(r), 4))
+    z[:, 0::2], z[:, 1::2] = r * np.cos(theta), r * np.sin(theta)
+    return z
+
+
+def mirror_noise(seed: int, m: int, j: int, num_steps: int) -> np.ndarray:
+    """The kernel's draws of a whole run, in fp64, (num_steps, m, j): element
+    4 g + k of each step's flattened (m, j) draws entry k of group g. Given to
+    :func:`spectral_train_reference` as ``noise`` with ``q_in`` the identity,
+    it replays a run of the kernel on ``seed`` with exact normals."""
+    groups = np.arange(-(-m * j // 4))
+    return np.stack([mirror_normals(seed, groups, t).reshape(-1)[: m * j].reshape(m, j)
+                     for t in range(num_steps)])
 
 
 def spectral_train_reference(
@@ -116,8 +197,8 @@ def _launch(w0, w_out, coeffs, partials, j, step0, num_steps, noise_scale, seed,
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(
         w0.data_ptr(), w_out.data_ptr(), *(c.data_ptr() for c in coeffs),
-        partials.data_ptr(), w0.numel(), j, partials.shape[1], step0, num_steps,
-        float(noise_scale), seed, int(zero_noise), stream,
+        partials.data_ptr(), partials.shape[1], w0.numel(), j, partials.shape[0], step0,
+        num_steps, float(noise_scale), seed, int(zero_noise), stream,
     )
     build.check(err, "spectral_train kernel")
     spectral_train.launches += 1
@@ -130,10 +211,9 @@ def _run_kernel(w0, coeffs, j, num_steps, noise_scale, seed, zero_noise, e_const
     Returns ``(w, energies)``. With ``step_size``/``patience`` it stops
     launching once the replayed stopper has fired (the trace beyond is not
     needed; the caller reruns to the stop)."""
-    total = w0.numel()
-    num_blocks = -(-total // (THREADS * ELEMENTS_PER_THREAD))
     partials = torch.empty(
-        (min(num_steps, STEPS_PER_LAUNCH), num_blocks), dtype=torch.float32, device=w0.device
+        (num_blocks(w0.numel()), min(num_steps, STEPS_PER_LAUNCH)), dtype=torch.float32,
+        device=w0.device,
     )
     energies = torch.full((num_steps,), float("nan"), dtype=torch.float32, device=w0.device)
     w = w0
@@ -141,7 +221,7 @@ def _run_kernel(w0, coeffs, j, num_steps, noise_scale, seed, zero_noise, e_const
         n = min(STEPS_PER_LAUNCH, num_steps - step0)
         w_next = torch.empty_like(w0)
         _launch(w, w_next, coeffs, partials, j, step0, n, noise_scale, seed, zero_noise)
-        energies[step0:step0 + n] = partials[:n].sum(dim=1) / j + e_const
+        energies[step0:step0 + n] = step_energies(partials, n, j, e_const)
         w = w_next
         if step_size is not None and step0 + n < num_steps:
             _, steps_run = replay_early_stopper(energies[: step0 + n], step_size, patience)
@@ -174,8 +254,8 @@ def spectral_train(
     On CUDA tensors the kernel runs in fp32 with Philox noise keyed on
     ``seed``; injected ``noise`` is refused there, and ``q_in`` and
     ``generator`` serve only the plain loop. ``zero_noise`` switches the noise
-    off for exact comparison with the plain version. On CPU tensors the plain
-    loop runs."""
+    off for exact comparison with the plain version. On CPU tensors the
+    plain loop runs."""
     if w0.device.type == "cpu":
         return spectral_train_reference(
             w0, decay, shift, energy_sigma, b_rot, eta=eta, patience=patience,

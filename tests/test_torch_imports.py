@@ -12,6 +12,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "projected_langevin_sampling_tpu"
 FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "examples" / "readme_demo_torch.py",
+    ROOT / "scripts" / "b1_b2_breakdown.py",
     ROOT / "scripts" / "b3_b5_breakdown.py",
     ROOT / "scripts" / "mma_sync_ceiling.py",
 ]
