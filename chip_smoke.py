@@ -2,7 +2,7 @@
 
 Builds the five hand-written CUDA kernels from ``projected_langevin_sampling_torch/csrc``
 with nvcc, holds each against its plain PyTorch version at the main paths'
-shapes, and drives three main paths through the entry points a user calls,
+shapes, and drives four main paths through the entry points a user calls,
 each run with the launch counters set to 0 just before it and read just after:
 
 - slice 1, ONB + Gaussian at N=5000, M=512, J=1000, fp32: build, 20000
@@ -17,7 +17,15 @@ each run with the launch counters set to 0 just before it and read just after:
   steps on the quadratic_fused tier (B4) and on the spectral tier (B1), each
   with a chunked predict; the Bernoulli cell through the W-space view on the
   general kernel (B3), and 2000 steps of ``langevin_steps`` on the Euler
-  general body (B5 once per step).
+  general body (B5 once per step);
+- slice 4, the UCI regression protocol at kin8nm's shape (N=8192, D=8,
+  fp64, split 80/10/10): B2's backward held to the plain version's autograd,
+  an exact GP fitted on a 5000-row random subsample, an SVGP on M=81
+  inducing points with its inducing inputs learned, Titsias's optimum, the
+  ONB Gaussian PLS with Student-T extra predictive noise on B1, then
+  TemperPLS, ConformalisePLS, TemperGP and ConformaliseGP with the test
+  coverage of their 95% intervals; Dirichlet targets and a fixed-noise exact
+  GP on slice 2's labels, and spread tempering of slice 2's trained model.
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
 tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
@@ -975,7 +983,7 @@ def phase_classification(pt, gram, spec, gen):
     log(f"  bernoulli/euler train_pls {STEPS7} steps {1e3 * euler_s:.1f} ms = "
         f"{1e3 * euler_s / STEPS7:.4f} ms/step, {STEPS7 / euler_s:.1f} updates/s; "
         f"energy {energies_b[0]:.2f} -> {energies_b[-1]:.2f}")
-    return launches
+    return launches, (pls, trained_c)
 
 
 # --------------------------------------------------------------------------
@@ -1362,6 +1370,297 @@ def phase_ipb_path(pt, counters):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 11: the slice 4 main path, the UCI regression protocol
+# --------------------------------------------------------------------------
+# kin8nm's shape, the largest UCI regression set of the repo: N = 8192 rows,
+# D = 8, fp64, split 80/10/10 (experiments/uci/regression/config.yaml)
+N11, D11, J11 = 8192, 8, 100
+SUBSAMPLE11, LR11, BATCH11 = 5000, 1e-2, 5000  # config.yaml's kernel and svgp settings
+GP_EPOCHS11, SVGP_EPOCHS11, SVGP_LR11 = 100, 20, 0.1
+PLS_DURATION11, PLS_STEP_MAX11 = 0.5, 1e-3  # config.yaml's simulation time and step cap
+COVERAGE11 = 0.95
+# B2's backward against plain autograd, normwise: max|dL/dp kernel - plain|
+# over max|dL/dp plain| for each parameter p. Both are the same algebra in
+# another order of summation; on the CPU at these shapes (where the forward
+# is the plain version) they differ by at most 3e-15 in fp64 and 5e-7 in fp32,
+# and the fp32 plain autograd itself errs by up to 1.3e-6 against fp64. On
+# the card the kernel's gram also differs from the plain one within phase
+# 2's rtol (1e-5 in fp32), which moves W = G K by as much: 1e-10 and 1e-4.
+B2_GRAD_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def kin8nm_like(seed=0):
+    """experiments/uci/make_synthetic_datasets.py:30-55 at kin8nm's shape:
+    correlated Gaussian inputs, targets a sum of 8 RBF bumps plus noise at
+    0.1 of their spread; split 80/10/10 and normalised on the training split,
+    as the experiments do."""
+    rng = np.random.default_rng(seed)
+    mixing = rng.normal(size=(D11, D11)) / np.sqrt(D11)
+    x = rng.normal(size=(N11, D11)) @ mixing
+    centres = rng.normal(size=(8, D11))
+    weights = rng.normal(size=8) * 2.0
+    d2 = ((x[:, None, :] - centres[None, :, :]) / np.sqrt(D11)) ** 2
+    f = np.exp(-0.5 * d2.sum(-1)) @ weights
+    y = f + 0.1 * np.std(f) * rng.normal(size=N11)
+    perm = rng.permutation(N11)
+    n_train, n_val = round(0.8 * N11), round(0.1 * N11)
+    parts = np.split(perm, [n_train, n_train + n_val])
+    x_mean, x_std = x[parts[0]].mean(0), x[parts[0]].std(0)
+    y_mean, y_std = y[parts[0]].mean(), y[parts[0]].std()
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")  # noqa: E731
+    return [(as_t((x[p] - x_mean) / x_std), as_t((y[p] - y_mean) / y_std)) for p in parts]
+
+
+def b2_backward_check(pt, gram, x_sub, z, x_train):
+    """(a): B2's gradient on the card against the plain version's autograd,
+    for the lengthscales, the outputscale and both inputs; returns the
+    backward's time beside the plain autograd's at each shape."""
+    from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram, ard_gram_scaled_reference
+
+    times = {}
+    for dtype in (torch.float64, torch.float32):
+        for kind, a, b in (("same", x_sub, None), ("cross", z, x_train)):
+            name = f"{kind} {a.shape[0]}x{(a if b is None else b).shape[0]}"
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            ls = torch.linspace(0.8, 2.0, D11, dtype=dtype, device="cuda")
+            n2 = a.shape[0] if b is None else b.shape[0]
+            g = torch.randn((a.shape[0], n2), generator=gen, dtype=dtype, device="cuda")
+
+            def leaves():
+                x1 = a.to(dtype).clone().requires_grad_(True)
+                x2 = None if b is None else b.to(dtype).clone().requires_grad_(True)
+                params = [x1, ls.clone().requires_grad_(True),
+                          torch.tensor(1.3, dtype=dtype, device="cuda", requires_grad=True)]
+                return params + ([] if x2 is None else [x2])
+
+            def kernel_loss(p):
+                k = pt.ARDKernel(p[1], p[2])(p[0], p[3] if len(p) > 3 else None)
+                return torch.sum(g * k), k
+
+            def plain_loss(p):
+                s1 = p[0] / p[1]
+                s2 = s1 if len(p) == 3 else p[3] / p[1]
+                return torch.sum(g * ard_gram_scaled_reference(s1, s2, p[2], same=len(p) == 3)), None
+
+            pk, pp = leaves(), leaves()
+            (loss_k, k), (loss_p, _) = kernel_loss(pk), plain_loss(pp)
+            require(type(k.grad_fn) is ARDGram._backward_cls,
+                    f"the card's gram carries {type(k.grad_fn).__name__}, not ARDGram's backward")
+            grads_k = torch.autograd.grad(loss_k, pk, retain_graph=True)
+            grads_p = torch.autograd.grad(loss_p, pp, retain_graph=True)
+            errs = [float((gk - gp).abs().max() / gp.abs().max()) for gk, gp in zip(grads_k, grads_p)]
+            tol = B2_GRAD_TOL[dtype]
+            log(f"  (a) B2 backward {dtype} {name}: normwise error against plain autograd for "
+                f"x1, lengthscales, outputscale{', x2' if len(pk) > 3 else ''}: "
+                + ", ".join(f"{e:.2e}" for e in errs) + f" (tolerance {tol:.0e})")
+            require(all(e <= tol for e in errs), f"B2 backward disagrees: {dtype} {name} {errs}")
+            backward_ms = cuda_ms(lambda: torch.autograd.grad(loss_k, pk, retain_graph=True), 5)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(loss_p, pp, retain_graph=True), 5)
+            times[(dtype, kind)] = (backward_ms, plain_ms)
+            log(f"      backward {backward_ms:.3f} ms (plain autograd's {plain_ms:.3f} ms)")
+    return times
+
+
+def b2_backward_keys(launches_11):
+    """B2's backward on the slice 4 path: the passes the fits ran, and the
+    time of one backward at the exact GP's gram (5000 x 5000 same-input,
+    fp64) beside the plain version's autograd."""
+    backward_ms, plain_ms = launches_11["backward_ms"][(torch.float64, "same")]
+    return {"backward_launches": launches_11["backward"], "backward_ms": backward_ms,
+            "backward_plain_ms": plain_ms}
+
+
+def exact_gp_breakdown(exact, x_sub, y_sub):
+    """Where an epoch of the exact GP's fit goes, each part timed alone with
+    CUDA events at the fitted parameters: the same-input gram (B2), the
+    factorisation of K + noise I (nan_rescued_cholesky: one probe and the
+    factor; a plain torch.linalg.cholesky beside it), the loss forward, and
+    forward plus backward."""
+    from projected_langevin_sampling_torch.models.gaussian_process.training import (
+        _exact_gp_from_params,
+    )
+    from projected_langevin_sampling_torch.ops.linalg import nan_rescued_cholesky
+
+    params = {
+        "mean_constant": exact.mean_constant, "log_lengthscales": torch.log(exact.kernel.lengthscales),
+        "log_outputscale": torch.log(exact.kernel.outputscale), "log_noise": torch.log(exact.noise),
+    }
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    loss = lambda: -_exact_gp_from_params(params, x_sub, y_sub).log_marginal_likelihood()  # noqa: E731
+    k_noisy = exact.kernel(x_sub) + exact.noise * torch.eye(x_sub.shape[0], dtype=x_sub.dtype,
+                                                              device=x_sub.device)
+    return {
+        "gram": cuda_ms(lambda: exact.kernel(x_sub), 10),
+        "nan_rescued_cholesky": cuda_ms(lambda: nan_rescued_cholesky(k_noisy), 5),
+        "plain cholesky": cuda_ms(lambda: torch.linalg.cholesky(k_noisy), 5),
+        "loss forward": cuda_ms(loss, 5),
+        "forward + backward": cuda_ms(
+            lambda: torch.autograd.grad(loss(), list(params.values())), 5),
+    }
+
+
+def phase_slice4(pt, gram, counters, classifier):
+    from projected_langevin_sampling_torch.models.gaussian_process.likelihoods import (
+        GaussianLikelihood,
+    )
+    from projected_langevin_sampling_torch.models.temper.pls_classification import _bernoulli_nll
+    from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram
+    from projected_langevin_sampling_torch.training import spectral_system_host
+    import scipy.stats
+
+    (x_train, y_train), (x_val, y_val), (x_test, y_test) = kin8nm_like()
+    n_train = x_train.shape[0]
+    m = round(math.sqrt(n_train))
+    log(f"  data: N={N11} D={D11} fp64, train/validation/test {n_train}/{x_val.shape[0]}/"
+        f"{x_test.shape[0]}; M = round(sqrt(N_train)) = {m}; J = {J11}")
+    ard0 = pt.ARDKernel(torch.ones(D11, dtype=torch.float64, device="cuda"),
+                        torch.tensor(1.0, dtype=torch.float64, device="cuda"))
+    x_sub, sub_idx = pt.RandomInducingPointSelector()(x_train, SUBSAMPLE11, ard0,
+                                                      rng=np.random.default_rng(0))
+    y_sub = y_train[sub_idx]
+
+    # (b) the exact GP on the subsample
+    ARDGram.backward_calls = 0
+    (exact, gp_losses), gp_s, gp_launches = run_counted(counters, lambda: pt.fit_exact_gp(
+        x_sub, y_sub, ard0, learning_rate=LR11, number_of_epochs=GP_EPOCHS11))
+    gp_backward = ARDGram.backward_calls
+    require(len(gp_losses) == GP_EPOCHS11 and all(math.isfinite(v) for v in gp_losses),
+            "exact GP losses")
+    require(gp_losses[-1] < gp_losses[0], "the exact GP's MLL did not rise")
+    require(gp_launches["gram"] >= GP_EPOCHS11 and gp_backward >= GP_EPOCHS11,
+            f"the exact GP fit ran B2 {gp_launches['gram']} times, its backward {gp_backward}")
+    log(f"  (b) fit_exact_gp N={SUBSAMPLE11}, {GP_EPOCHS11} epochs at {LR11}: "
+        f"{1e3 * gp_s / GP_EPOCHS11:.1f} ms/epoch; -MLL/N {gp_losses[0]:.5f} -> "
+        f"{gp_losses[-1]:.5f}; B2 launches {gp_launches['gram']}, backward passes {gp_backward}; "
+        f"lengthscales {[round(v, 3) for v in exact.kernel.lengthscales.tolist()]}, "
+        f"outputscale {float(exact.kernel.outputscale):.4f}, noise {float(exact.noise):.5f}")
+
+    # (c) the SVGP on the learned kernel, M inducing points, batch 5000
+    z, _ = pt.ConditionalVarianceInducingPointSelector()(x_train, m, exact.kernel,
+                                                         rng=np.random.default_rng(0))
+    split = exact_gp_breakdown(exact, x_sub, y_sub)
+    log(f"  (b) one epoch's parts at {x_sub.shape[0]} rows, fp64 (CUDA events, alone): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()))
+    backward_times = b2_backward_check(pt, gram, x_sub, z, x_train)
+    kernel = pt.PLSKernel(base_kernel=exact.kernel, approximation_samples=z)
+    likelihood = GaussianLikelihood(noise=exact.noise)
+    svgp0 = pt.init_svgp(float(exact.mean_constant), kernel, likelihood, z)
+    ARDGram.backward_calls = 0
+    (svgp, svgp_losses), svgp_s, svgp_launches = run_counted(counters, lambda: pt.fit_svgp(
+        svgp0, x_train, y_train, SVGP_EPOCHS11, BATCH11, SVGP_LR11,
+        learn_inducing_locations=True, generator=0))
+    svgp_backward = ARDGram.backward_calls
+    require(svgp is not None and len(svgp_losses) == SVGP_EPOCHS11, "SVGP fit")
+    require(svgp_losses[-1] < svgp_losses[0], "the SVGP's ELBO did not rise")
+    require(svgp_launches["gram"] > 0 and svgp_backward > 0, "the SVGP fit did not run B2")
+    titsias = pt.titsias_optimal_svgp(svgp, x_train, y_train)
+    elbo_fit = float(svgp.elbo(x_train, y_train, n_train)) / n_train
+    elbo_opt = float(titsias.elbo(x_train, y_train, n_train)) / n_train
+    require(math.isfinite(elbo_opt) and elbo_opt >= elbo_fit - 1e-9,
+            f"Titsias's q(u) has ELBO/N {elbo_opt}, below the fit's {elbo_fit}")
+    log(f"  (c) fit_svgp M={m}, batch {BATCH11}, {SVGP_EPOCHS11} epochs at {SVGP_LR11}, "
+        f"inducing inputs learned: {1e3 * svgp_s / SVGP_EPOCHS11:.1f} ms/epoch; -ELBO/N "
+        f"{svgp_losses[0]:.5f} -> {svgp_losses[-1]:.5f}; B2 launches {svgp_launches['gram']}, "
+        f"backward passes {svgp_backward}; ELBO/N of Titsias's optimum {elbo_opt:.5f} >= "
+        f"the fit's {elbo_fit:.5f}")
+
+    # (d) the ONB Gaussian PLS with Student-T extra predictive noise, on B1
+    residuals = (y_train - exact.predict_y(x_train).mean).cpu().numpy()
+    df, _, t_scale = scipy.stats.t.fit(residuals, floc=0)
+    df = min(float(df), 1e6)  # experiments/uci/regression/main.py:125-138
+    # the likelihood's noise variance as the t's scale, as the reference does
+    noise = pt.StudentTPredictiveNoise(df=df, loc=0.0, scale=float(exact.noise))
+    pls_kernel = pt.PLSKernel(base_kernel=exact.kernel, approximation_samples=z)
+    (basis, build_s, build_launches) = run_counted(counters, lambda: pt.build_orthonormal_basis(
+        pls_kernel, z, x_train, additional_predictive_noise_distribution=noise, verbose=False))
+    cost = pt.GaussianCost(y_train=y_train, observation_noise=exact.noise)
+    pls = pt.PLS(basis, cost)
+    sigma_max = float(spectral_system_host(basis, cost).sigma.max())
+    step = min(PLS_STEP_MAX11, 1.0 / sigma_max)  # half the Euler bound 2 / sigma_max
+    steps = min(math.ceil(PLS_DURATION11 / step), 20_000)
+    particles = pls.initialise_particles(J11, generator=0)
+    (trained, energies), train_s, train_launches = run_counted(
+        counters, lambda: pt.train_pls(pls, particles, steps, step, generator=0))
+    require(train_launches["spectral"] == 1, f"train_pls launched B1 {train_launches['spectral']} times")
+    require(len(energies) == steps and all(math.isfinite(e) for e in energies)
+            and energies[-1] < energies[0], "PLS energies")
+    log(f"  (d) Student-T noise df {df:.4g} (t fit scale {t_scale:.4f}), scale {float(exact.noise):.5f}; "
+        f"ONB M_k={basis.approximation_dimension} built in {1e3 * build_s:.1f} ms; sigma_max "
+        f"{sigma_max:.4g}, step {step:.3g}, {steps} steps: train_pls(auto) {1e3 * train_s:.1f} ms; "
+        f"energy {energies[0]:.2f} -> {energies[-1]:.2f}; launches {train_launches}")
+
+    # (e) calibration on the validation split, coverage on the test split.
+    # Split conformal intervals cover at least 0.95 and at most 0.95 +
+    # 1/(n_cal + 1) on average; the coverage of n = 819 test points has a
+    # binomial sd sqrt(0.95 0.05 / n) = 0.0076, and the calibration split's
+    # draw adds about the same (a beta law of the same size), so 4 of the
+    # combined sd (0.043) about that range fails a run whose intervals are
+    # wrong while passing every correct one but 1 in 15,000.
+    n_val, n_test = x_val.shape[0], x_test.shape[0]
+    spread = math.sqrt(COVERAGE11 * (1 - COVERAGE11) * (1 / n_test + 1 / (n_val + 2)))
+    band = (COVERAGE11 - 4 * spread, COVERAGE11 + 1 / (n_val + 1) + 4 * spread)
+    t0 = time.perf_counter()
+    models = {
+        "TemperPLS": pt.TemperPLS(x_val, y_val, pls, trained, generator=1),
+        "TemperGP": pt.TemperGP(svgp, x_val, y_val),
+    }
+    for name, model in models.items():
+        pred = model(x_test)
+        nll = float(pred.negative_log_likelihood(y_test))
+        require(math.isfinite(model.scale) and model.scale > 0 and math.isfinite(nll),
+                f"{name} scale {model.scale}, NLL {nll}")
+        log(f"  (e) {name}: scale {model.scale:.4f}, test NLL {nll:.4f}")
+    for name, model in {
+        "ConformalisePLS": pt.ConformalisePLS(x_val, y_val, pls, trained, generator=2),
+        "ConformaliseGP": pt.ConformaliseGP(svgp, x_val, y_val),
+    }.items():
+        pred = model(x_test, COVERAGE11)
+        coverage = float(((pred.lower <= y_test) & (y_test <= pred.upper)).double().mean())
+        width = float((pred.upper - pred.lower).mean())
+        log(f"  (e) {name}: test coverage of the {COVERAGE11} intervals {coverage:.4f} (band "
+            f"[{band[0]:.4f}, {band[1]:.4f}]), mean width {width:.4f}")
+        require(band[0] <= coverage <= band[1], f"{name} coverage {coverage} outside {band}")
+    calib_s = time.perf_counter() - t0
+
+    # (f) Dirichlet targets and a fixed-noise exact GP on phase 7's
+    # classification data; spread tempering of phase 7's trained model
+    x7, labels7, _, _ = classification_inputs()
+    x7, labels7 = x7.double(), labels7.double()
+    targets, noise_var, classes = pt.dirichlet_classification_targets(labels7.long())
+    require(classes == 2, f"{classes} classes")
+    ard7 = pt.ARDKernel(torch.ones(1, dtype=torch.float64, device="cuda"),
+                        torch.tensor(1.0, dtype=torch.float64, device="cuda"))
+    (gp7, losses7), gp7_s, gp7_launches = run_counted(counters, lambda: pt.fit_exact_gp(
+        x7, targets[1].double(), ard7, learning_rate=0.1, number_of_epochs=GP_EPOCHS11,
+        fixed_noise_variances=noise_var[1].double()))
+    require(losses7[-1] < losses7[0] and gp7_launches["gram"] >= GP_EPOCHS11,
+            "the Dirichlet fit did not learn through B2")
+    pls7, trained7 = classifier
+    gen = np.random.default_rng(11)
+    x_cal = np.sort(gen.uniform(-3, 3, (1000, 1)), axis=0)
+    y_cal = (np.sin(2 * x_cal[:, 0]) + 0.2 * gen.normal(size=1000) > 0).astype(np.float32)
+    x_cal, y_cal = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (x_cal, y_cal))
+    # the calibration draw's noise injected, so that s = 1 is scored on the
+    # same latent samples as the chosen scale
+    cal_noise = pls7.basis.sample_predictive_noise(trained7, x_cal, generator=3)
+    temper = pt.TemperPLSClassification(x_cal, y_cal, pls7, trained7, generator=3,
+                                        predictive_noise=cal_noise)
+    f_cal = temper._latent_samples(x_cal, cal_noise)
+    nll_one = float(_bernoulli_nll(temper._tempered_probs(f_cal, 1.0), y_cal))
+    nll_chosen = temper.calibration_nll
+    require(nll_chosen <= nll_one, f"tempered NLL {nll_chosen} above the untempered {nll_one}")
+    log(f"  (f) Dirichlet targets, class-1 exact GP with fixed noise on N={x7.shape[0]}: "
+        f"{1e3 * gp7_s / GP_EPOCHS11:.1f} ms/epoch, -MLL/N {losses7[0]:.4f} -> {losses7[-1]:.4f}, "
+        f"outputscale {float(gp7.kernel.outputscale):.3f}; TemperPLSClassification scale "
+        f"{temper.scale:.4f}: calibration NLL {nll_chosen:.5f} <= {nll_one:.5f} at s = 1")
+    log(f"  calibration models {1e3 * calib_s:.1f} ms")
+    launches = sum(c["gram"] for c in (gp_launches, svgp_launches, build_launches,
+                                        train_launches, gp7_launches))
+    return {"gram": launches, "spectral": train_launches["spectral"],
+            "backward": gp_backward + svgp_backward, "backward_ms": backward_times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1430,7 +1729,7 @@ def main() -> int:
     phase("phase 5: README demo in fp64 on the card", demo)
     gen_res = phase("phase 6: B3 general-cost trainer against its plain version and its law",
                     phase_general, pt, gen)
-    launches_7 = phase(f"phase 7: slice 2 main path, smoothed Bernoulli classification, N={N}, "
+    launches_7, classifier = phase(f"phase 7: slice 2 main path, smoothed Bernoulli classification, N={N}, "
                        f"M={M}, J={J}, fp32, {STEPS7} steps",
                        phase_classification, pt, gram, spec, gen)
     quad_res = phase("phase 8: B4 quadratic trainer against its plain version and its law",
@@ -1442,6 +1741,9 @@ def main() -> int:
                 "fused": fused.fused_update}
     launches_10 = phase(f"phase 10: slice 3 main path, the inducing-point basis, N={N}, M={M}, "
                         f"J={J}, fp32", phase_ipb_path, pt, counters)
+    launches_11 = phase(f"phase 11: slice 4 main path, the UCI regression protocol at kin8nm's "
+                        f"shape (N={N11}, D={D11}, fp64)", phase_slice4, pt, gram, counters,
+                        classifier)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",
@@ -1451,7 +1753,9 @@ def main() -> int:
         {"name": "ard_gram", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/gram.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
-         "launches": launches["gram"], "library_ms": None, "matched": True, **gram_res},
+         # the slice 1 path's launches and the slice 4 path's (phase 11)
+         "launches": launches["gram"] + launches_11["gram"], "library_ms": None,
+         "matched": True, **gram_res, **b2_backward_keys(launches_11)},
         {"name": "general_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/general_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/general_train.py:307",
@@ -1468,10 +1772,12 @@ def main() -> int:
          "matched": True, **fused_res},
     ]
     key_order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-                 "plain_ms", "bound_ms", "bound_by", "library_ms", "matched"]
+                 "plain_ms", "bound_ms", "bound_by", "library_ms", "matched",
+                 "backward_launches", "backward_ms", "backward_plain_ms"]
     log(f"all phases passed in {time.perf_counter() - start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [{k: kern[k] for k in key_order} for kern in kernels]}))
+    print(json.dumps({"kernels": [{k: kern[k] for k in key_order if k in kern}
+                                  for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

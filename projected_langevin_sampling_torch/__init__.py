@@ -7,7 +7,11 @@ Bernoulli, smoothed Bernoulli, Poisson, Student-T, the bimodal mixture) with
 the MAP mean constant, Langevin training on the off, quadratic,
 quadratic_fused, spectral and general_fused tiers under the euler,
 exponential and preconditioned discretisations, the throughput path
-``langevin_steps``, Matheron prediction and tempering. Five kernels are
+``langevin_steps``, Matheron prediction with optional extra (Student-T or
+normal) predictive noise, the baseline GPs (exact GP, SVGP, their
+likelihoods, Dirichlet targets) and their fits, and the calibration layer
+(tempering of PLS and GPs, spread tempering of PLS classifiers, split
+conformal prediction). Five kernels are
 written by hand for ``sm_90a`` (``csrc/``): the whole-run spectral,
 general-cost and quadratic trainers, the fused general update and the ARD
 gram. Entry points put their tensors on ``cuda`` unless the caller passes
@@ -15,7 +19,9 @@ CPU tensors or ``device="cpu"``.
 
 TF32 is switched off for the whole process on import: TF32 on Hopper keeps
 about three decimal digits, the same fault as the TPU's bf16 operands inside
-the squared-distance cancellation of the grams.
+the squared-distance cancellation of the grams. The gram kernel carries a
+gradient (its autograd Function), so the GP fits learn their kernels on the
+card.
 """
 
 import torch
@@ -32,6 +38,14 @@ from projected_langevin_sampling_torch.models.basis.orthonormal import (  # noqa
     OrthonormalBasis,
     build_orthonormal_basis,
 )
+from projected_langevin_sampling_torch.models.basis.noise_distributions import (  # noqa: E402
+    NormalPredictiveNoise,
+    StudentTPredictiveNoise,
+)
+from projected_langevin_sampling_torch.models.conformalise import (  # noqa: E402
+    ConformaliseGP,
+    ConformalisePLS,
+)
 from projected_langevin_sampling_torch.models.costs import (  # noqa: E402
     BernoulliCost,
     GaussianCost,
@@ -42,12 +56,35 @@ from projected_langevin_sampling_torch.models.costs import (  # noqa: E402
     make_smoothed_bernoulli_cost,
     residual_smoothing_std,
 )
+from projected_langevin_sampling_torch.models.gaussian_process import (  # noqa: E402
+    SVGP,
+    BernoulliLikelihood,
+    ExactGP,
+    GaussianLikelihood,
+    StudentTLikelihood,
+    init_svgp,
+    titsias_optimal_svgp,
+)
+from projected_langevin_sampling_torch.models.gaussian_process.dirichlet import (  # noqa: E402
+    dirichlet_classification_targets,
+)
+from projected_langevin_sampling_torch.models.gaussian_process.training import (  # noqa: E402
+    fit_exact_gp,
+    fit_svgp,
+)
 from projected_langevin_sampling_torch.models.inducing_point_selectors.conditional_variance import (  # noqa: E402,E501
     ConditionalVarianceInducingPointSelector,
 )
+from projected_langevin_sampling_torch.models.inducing_point_selectors.random import (  # noqa: E402
+    RandomInducingPointSelector,
+)
 from projected_langevin_sampling_torch.models.mean_constant import fit_mean_constant_map  # noqa: E402
 from projected_langevin_sampling_torch.models.pls import PLS  # noqa: E402
+from projected_langevin_sampling_torch.models.temper.gp import TemperGP  # noqa: E402
 from projected_langevin_sampling_torch.models.temper.pls import TemperPLS  # noqa: E402
+from projected_langevin_sampling_torch.models.temper.pls_classification import (  # noqa: E402
+    TemperPLSClassification,
+)
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel  # noqa: E402
 from projected_langevin_sampling_torch.training import langevin_steps, train_pls  # noqa: E402
 
@@ -74,5 +111,22 @@ __all__ = [
     "train_pls",
     "langevin_steps",
     "TemperPLS",
+    "TemperGP",
+    "TemperPLSClassification",
+    "ConformalisePLS",
+    "ConformaliseGP",
     "ConditionalVarianceInducingPointSelector",
+    "RandomInducingPointSelector",
+    "StudentTPredictiveNoise",
+    "NormalPredictiveNoise",
+    "ExactGP",
+    "SVGP",
+    "init_svgp",
+    "titsias_optimal_svgp",
+    "GaussianLikelihood",
+    "BernoulliLikelihood",
+    "StudentTLikelihood",
+    "dirichlet_classification_targets",
+    "fit_exact_gp",
+    "fit_svgp",
 ]

@@ -3,13 +3,19 @@
 Each function takes a plain dict of numpy arrays (the field names of the JAX
 package's dataclasses) and returns the port's object on ``device`` (the card
 unless the caller asks for the CPU). With these, both packages compute on
-the same basis and cost, eigenvector signs included.
+the same basis, cost and baseline GP, eigenvector signs included. A
+likelihood or an extra predictive-noise distribution is a dict with a
+``"kind"`` beside its fields.
 """
 
 from __future__ import annotations
 
 from projected_langevin_sampling_torch.models import link_functions
 from projected_langevin_sampling_torch.models.basis.inducing_point import InducingPointBasis
+from projected_langevin_sampling_torch.models.basis.noise_distributions import (
+    NormalPredictiveNoise,
+    StudentTPredictiveNoise,
+)
 from projected_langevin_sampling_torch.models.basis.orthonormal import OrthonormalBasis
 from projected_langevin_sampling_torch.models.costs import (
     BernoulliCost,
@@ -18,6 +24,13 @@ from projected_langevin_sampling_torch.models.costs import (
     PoissonCost,
     SmoothedBernoulliCost,
     StudentTCost,
+)
+from projected_langevin_sampling_torch.models.gaussian_process import (
+    SVGP,
+    BernoulliLikelihood,
+    ExactGP,
+    GaussianLikelihood,
+    StudentTLikelihood,
 )
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel
 from projected_langevin_sampling_torch.utils.device import as_tensor
@@ -39,10 +52,43 @@ def pls_kernel_from_numpy(params: dict, device=None) -> PLSKernel:
     )
 
 
+def kernel_from_numpy(params: dict, device=None) -> ARDKernel | PLSKernel:
+    """A PLS kernel's dict (it has ``"base_kernel"``) or an ARD kernel's."""
+    if "base_kernel" in params:
+        return pls_kernel_from_numpy(params, device=device)
+    return ard_kernel_from_numpy(params, device=device)
+
+
+def student_t_predictive_noise_from_numpy(params: dict) -> StudentTPredictiveNoise:
+    """``{"df": float}`` plus optional ``"loc"`` and ``"scale"``."""
+    return StudentTPredictiveNoise(
+        df=float(params["df"]), loc=float(params.get("loc", 0.0)),
+        scale=float(params.get("scale", 1.0)),
+    )
+
+
+def normal_predictive_noise_from_numpy(params: dict) -> NormalPredictiveNoise:
+    """Optional ``"loc"`` and ``"scale"``."""
+    return NormalPredictiveNoise(loc=float(params.get("loc", 0.0)),
+                                 scale=float(params.get("scale", 1.0)))
+
+
+_NOISES = {"student_t": student_t_predictive_noise_from_numpy,
+           "normal": normal_predictive_noise_from_numpy}
+
+
+def predictive_noise_from_numpy(params: dict | None):
+    """None, or ``{"kind": "student_t" | "normal", ...}``."""
+    if params is None:
+        return None
+    return _NOISES[params["kind"]](params)
+
+
 def orthonormal_basis_from_numpy(params: dict, device=None) -> OrthonormalBasis:
     """``{"kernel": {...}, "x_induce", "eigenvalues", "scaled_eigenvectors",
     "base_gram_induce_train", "train_projection"}`` plus optional
-    ``"scaling"`` and ``"mean_constant"``."""
+    ``"scaling"``, ``"mean_constant"`` and
+    ``"additional_predictive_noise_distribution"``."""
     tensor = lambda name: as_tensor(params[name], device=device)  # noqa: E731
     return OrthonormalBasis(
         kernel=pls_kernel_from_numpy(params["kernel"], device=device),
@@ -51,6 +97,8 @@ def orthonormal_basis_from_numpy(params: dict, device=None) -> OrthonormalBasis:
         scaled_eigenvectors=tensor("scaled_eigenvectors"),
         base_gram_induce_train=tensor("base_gram_induce_train"),
         train_projection=tensor("train_projection"),
+        additional_predictive_noise_distribution=predictive_noise_from_numpy(
+            params.get("additional_predictive_noise_distribution")),
         scaling=params.get("scaling", "reference"),
         mean_constant=float(params.get("mean_constant", 0.0)),
     )
@@ -59,7 +107,8 @@ def orthonormal_basis_from_numpy(params: dict, device=None) -> OrthonormalBasis:
 def inducing_point_basis_from_numpy(params: dict, device=None) -> InducingPointBasis:
     """``{"kernel": {...}, "x_induce", "y_induce", "gram_induce",
     "base_gram_induce", "base_gram_induce_train", "inv_base_gram_induce",
-    "train_projection", "noise_factor"}`` plus optional ``"mean_constant"``."""
+    "train_projection", "noise_factor"}`` plus optional ``"mean_constant"``
+    and ``"additional_predictive_noise_distribution"``."""
     tensor = lambda name: as_tensor(params[name], device=device)  # noqa: E731
     return InducingPointBasis(
         kernel=pls_kernel_from_numpy(params["kernel"], device=device),
@@ -68,6 +117,8 @@ def inducing_point_basis_from_numpy(params: dict, device=None) -> InducingPointB
             "base_gram_induce_train", "inv_base_gram_induce", "train_projection",
             "noise_factor",
         )},
+        additional_predictive_noise_distribution=predictive_noise_from_numpy(
+            params.get("additional_predictive_noise_distribution")),
         mean_constant=float(params.get("mean_constant", 0.0)),
     )
 
@@ -151,4 +202,62 @@ def multimodal_cost_from_numpy(params: dict, device=None) -> MultiModalCost:
         shift=float(params["shift"]),
         bernoulli_noise=float(params["bernoulli_noise"]),
         link_function=_link(params, "identity"),
+    )
+
+
+def gaussian_likelihood_from_numpy(params: dict, device=None) -> GaussianLikelihood:
+    """``{"noise": ()}``."""
+    return GaussianLikelihood(noise=as_tensor(params["noise"], device=device))
+
+
+def bernoulli_likelihood_from_numpy(params: dict, device=None) -> BernoulliLikelihood:
+    """No fields (the probit likelihood)."""
+    return BernoulliLikelihood()
+
+
+def student_t_likelihood_from_numpy(params: dict, device=None) -> StudentTLikelihood:
+    """``{"noise": (), "degrees_of_freedom": float}``."""
+    return StudentTLikelihood(noise=as_tensor(params["noise"], device=device),
+                              degrees_of_freedom=float(params["degrees_of_freedom"]))
+
+
+_LIKELIHOODS = {
+    "gaussian": gaussian_likelihood_from_numpy,
+    "bernoulli": bernoulli_likelihood_from_numpy,
+    "student_t": student_t_likelihood_from_numpy,
+}
+
+
+def likelihood_from_numpy(params: dict, device=None):
+    """``{"kind": "gaussian" | "bernoulli" | "student_t", ...}``."""
+    return _LIKELIHOODS[params["kind"]](params, device=device)
+
+
+def exact_gp_from_numpy(params: dict, device=None) -> ExactGP:
+    """``{"mean_constant": (), "kernel": {ARD}, "noise": (), "x_train": (N, D),
+    "y_train": (N,)}`` plus optional ``"fixed_noise_variances"`` (N,)."""
+    fixed = params.get("fixed_noise_variances")
+    return ExactGP(
+        mean_constant=as_tensor(params["mean_constant"], device=device),
+        kernel=ard_kernel_from_numpy(params["kernel"], device=device),
+        noise=as_tensor(params["noise"], device=device),
+        x_train=as_tensor(params["x_train"], device=device),
+        y_train=as_tensor(params["y_train"], device=device),
+        fixed_noise_variances=None if fixed is None else as_tensor(fixed, device=device),
+    )
+
+
+def svgp_from_numpy(params: dict, device=None) -> SVGP:
+    """``{"mean_constant": (), "kernel": {ARD or PLS}, "likelihood": {"kind",
+    ...}, "x_induce": (M, D), "variational_mean": (M,), "variational_chol":
+    (M, M)}`` plus optional ``"jitter"``."""
+    tensor = lambda name: as_tensor(params[name], device=device)  # noqa: E731
+    return SVGP(
+        mean_constant=tensor("mean_constant"),
+        kernel=kernel_from_numpy(params["kernel"], device=device),
+        likelihood=likelihood_from_numpy(params["likelihood"], device=device),
+        x_induce=tensor("x_induce"),
+        variational_mean=tensor("variational_mean"),
+        variational_chol=tensor("variational_chol"),
+        jitter=float(params.get("jitter", 1e-8)),
     )

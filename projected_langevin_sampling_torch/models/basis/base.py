@@ -4,6 +4,9 @@ reference ``basis/base.py:7-193``).
 
 Every constant factor (eigendecomposition, train projection) is computed once
 at build time, so a training step is matrix products and elementwise work.
+A basis may carry an ``additional_predictive_noise_distribution``
+(``noise_distributions.py``), drawn on top of the whole Gaussian predictive
+noise, basis block included.
 """
 
 from __future__ import annotations
@@ -74,3 +77,24 @@ class PLSBasisMixin:
             step_size=step_size,
             noise=noise,
         )
+
+    def _sample_additional_predictive_noise(
+        self, generator: torch.Generator, shape: tuple[int, ...]
+    ) -> torch.Tensor | None:
+        """A draw of the basis's extra predictive noise of ``shape``, or None
+        when it has none (JAX ``base.py:92-98``)."""
+        dist = getattr(self, "additional_predictive_noise_distribution", None)
+        if dist is None:
+            return None
+        return dist.sample(generator, shape, dtype=self.dtype)
+
+    def _with_additional_predictive_noise(
+        self, noise: torch.Tensor, generator: GeneratorLike
+    ) -> torch.Tensor:
+        """``noise`` plus the extra predictive noise, drawn from ``generator``
+        after the Gaussian draw; one independent draw per block of a batched
+        (B, M + c, J) noise, as the JAX package's per-chunk draws."""
+        extra = self._sample_additional_predictive_noise(
+            as_generator(generator, device=self.device), tuple(noise.shape)
+        )
+        return noise if extra is None else noise + extra

@@ -53,17 +53,10 @@ class InducingPointBasis(PLSBasisMixin):
     inv_base_gram_induce: torch.Tensor  # k(Z, Z)^{-1}, (M, M)
     train_projection: torch.Tensor  # k(X, Z) k(Z, Z)^{-1}, (N, M)
     noise_factor: torch.Tensor  # S with S S^T = k(Z, Z), (M, M)
-    # the JAX package's extra predictive noise: slice 4 of the port
+    # extra noise on the whole predictive noise (noise_distributions.py)
     additional_predictive_noise_distribution: object | None = None
     # prior mean constant m0: f(x) = m0 + ... (0 in the reference)
     mean_constant: float = 0.0
-
-    def __post_init__(self):
-        if self.additional_predictive_noise_distribution is not None:
-            raise NotImplementedError(
-                "additional_predictive_noise_distribution comes with slice 4 of the port "
-                "(calibration and noise distributions)"
-            )
 
     def replace(self, **changes) -> InducingPointBasis:
         return dataclasses.replace(self, **changes)
@@ -170,14 +163,16 @@ class InducingPointBasis(PLSBasisMixin):
         augmentation_samples: torch.Tensor | None = None,
         normals: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """Joint MVN draw (..., M + c, J) of G([Z, x]); ``normals`` injects
-        the standard normals."""
+        """Joint MVN draw (..., M + c, J) of G([Z, x]), plus the extra
+        predictive noise where the basis has one; ``normals`` injects the
+        standard normals."""
         cov = self.predictive_noise_covariance(x, augmentation_samples)
         if normals is None:
             generator = as_generator(generator, device=self.device)
-        return sample_with_factor(
+        noise = sample_with_factor(
             psd_sqrt(cov), particles.shape[1], generator=generator, normals=normals
         )
+        return self._with_additional_predictive_noise(noise, generator)
 
     def predict_untransformed_samples(
         self,

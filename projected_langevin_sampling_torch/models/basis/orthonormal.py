@@ -41,6 +41,8 @@ class OrthonormalBasis(PLSBasisMixin):
     scaled_eigenvectors: torch.Tensor  # (M, M_k)
     base_gram_induce_train: torch.Tensor  # k(Z, X), (M, N)
     train_projection: torch.Tensor  # B = k(Z,X)^T @ Vt, (N, M_k)
+    # extra noise on the whole predictive noise (noise_distributions.py)
+    additional_predictive_noise_distribution: object | None = None
     # "reference": Vt = V / sqrt(M_k lambda), the reference's formula.
     # "nystrom": Vt = V / (sqrt(M) lambda), so Vt Lambda Vt^T == Kzz^{-1}
     # (truncated) and the implied prior is the Nystrom approximation of k.
@@ -174,14 +176,16 @@ class OrthonormalBasis(PLSBasisMixin):
         normals: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Joint MVN draw (..., M_k + c, J) over [coefficients; test values]
-        (reference ``orthonormal.py:161-214``); ``normals`` injects the
-        standard normals."""
+        (reference ``orthonormal.py:161-214``), plus the extra predictive
+        noise where the basis has one; ``normals`` injects the standard
+        normals."""
         cov = self.predictive_noise_covariance(x, augmentation_samples, base_gram_x_induce)
         if normals is None:
             generator = as_generator(generator, device=self.device)
-        return sample_with_factor(
+        noise = sample_with_factor(
             psd_sqrt(cov), particles.shape[1], generator=generator, normals=normals
         )
+        return self._with_additional_predictive_noise(noise, generator)
 
     def predict_untransformed_samples(
         self,
@@ -215,6 +219,7 @@ def build_orthonormal_basis(
     x_induce,
     x_train,
     eigenvalue_threshold: float = 0.0,
+    additional_predictive_noise_distribution: object | None = None,
     verbose: bool = True,
     scaling: str = "reference",
     relative_eigenvalue_threshold: float | None = None,
@@ -279,6 +284,7 @@ def build_orthonormal_basis(
         scaled_eigenvectors=as_working(scaled_eigenvectors),
         base_gram_induce_train=base_gram_induce_train,
         train_projection=as_working(train_projection),
+        additional_predictive_noise_distribution=additional_predictive_noise_distribution,
         scaling=scaling,
         mean_constant=float(mean_constant),
     )

@@ -3,8 +3,9 @@ functions (counterpart of ``projected_langevin_sampling_tpu/ops/kernels.py``).
 
 A gram is built from the squared-distance expansion ``|a|^2 + |b|^2 - 2 a.b``.
 On CUDA tensors every non-``diag`` ARD gram goes through the hand-written
-gram kernel (``ops/cuda/gram.py``); on CPU tensors through its plain
-version, which is :func:`squared_distance` plus the exp.
+gram kernel (``ops/cuda/gram.py``), whose autograd Function carries the
+gradient to the lengthscales, the outputscale and the inputs; on CPU tensors
+through its plain version, which is :func:`squared_distance` plus the exp.
 
 "Same input" is ``x2 is None``: the squared distance of the diagonal is then
 exactly 0 (gpytorch's ``x1_eq_x2`` path). Object identity is not used, since
@@ -125,11 +126,12 @@ def pls_gram(
     approximation_samples: torch.Tensor,
     diag: bool = False,
 ) -> torch.Tensor:
-    """r(x1, x2) = (1/S) k(x1, Z_s) k(Z_s, x2): two grams and one matmul."""
+    """r(x1, x2) = (1/S) k(x1, Z_s) k(Z_s, x2): two grams and one matmul;
+    ``diag`` takes the row sums of the elementwise product instead of the
+    whole (N1, N2) product."""
     num_samples = approximation_samples.shape[0]
     gram_1 = ard_gram(base_kernel, x1, approximation_samples)  # (N1, S)
     gram_2 = ard_gram(base_kernel, x2, approximation_samples)  # (N2, S)
-    res = (gram_1 @ gram_2.T) / num_samples
     if diag:
-        return torch.diagonal(res)
-    return res
+        return torch.sum(gram_1 * gram_2, dim=-1) / num_samples
+    return (gram_1 @ gram_2.T) / num_samples

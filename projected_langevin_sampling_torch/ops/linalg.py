@@ -132,14 +132,22 @@ def nan_rescued_cholesky(
     Cholesky), else the factor at the first finite jitter of
     ``base_jitter * 10^k``, k = 0..max_tries-1; with every candidate NaN, the
     plain factor (NaN). Only the selected jitter's factorisation carries a
-    gradient."""
+    gradient. A healthy input costs one factorisation: the plain factor is
+    tried first and returned where every matrix factorises; otherwise the
+    probes stop at the first jitter that leaves no matrix unfactored."""
+    plain = _cholesky_or_nan(matrix)
+    if bool(_all_finite(plain).all()):
+        return plain
     eye = _eye_like(matrix)
     probe = matrix.detach()
     jitters = [0.0] + [base_jitter * 10.0**k for k in range(max_tries)]
-    ok = torch.stack(
-        [_all_finite(_cholesky_or_nan(probe + j * eye))[..., 0, 0] for j in jitters], dim=-1
-    )
-    table = torch.tensor(jitters, dtype=matrix.dtype, device=matrix.device)
+    found = []  # probes up to the first jitter at which every matrix factorises
+    for j in jitters:
+        found.append(_all_finite(_cholesky_or_nan(probe + j * eye))[..., 0, 0])
+        if bool(torch.stack(found, dim=-1).any(dim=-1).all()):
+            break
+    ok = torch.stack(found, dim=-1)
+    table = torch.tensor(jitters[: len(found)], dtype=matrix.dtype, device=matrix.device)
     selected = table[torch.argmax(ok.to(torch.int8), dim=-1)]  # first finite (0 if none)
     return _cholesky_or_nan(matrix + selected[..., None, None] * eye)
 

@@ -44,5 +44,14 @@ def test_port_has_the_slice_modules():
                    "models/costs/bernoulli.py", "models/costs/poisson.py",
                    "models/costs/student_t.py", "models/costs/multimodal.py",
                    "models/costs/smoothed_bernoulli.py", "models/basis/inducing_point.py",
-                   "ops/cuda/quadratic_train.py", "ops/cuda/fused_update.py"):
+                   "ops/cuda/quadratic_train.py", "ops/cuda/fused_update.py",
+                   "models/basis/noise_distributions.py",
+                   "models/inducing_point_selectors/random.py", "utils/prng.py",
+                   "models/gaussian_process/likelihoods.py",
+                   "models/gaussian_process/exact_gp.py", "models/gaussian_process/svgp.py",
+                   "models/gaussian_process/dirichlet.py",
+                   "models/gaussian_process/training.py", "models/temper/gp.py",
+                   "models/temper/pls_classification.py", "models/conformalise/base.py",
+                   "models/conformalise/gp.py", "models/conformalise/pls.py",
+                   "models/custom_types.py"):
         assert f"projected_langevin_sampling_torch/{module}" in names

@@ -68,10 +68,22 @@ def test_build_matches_jax(mean_constant):
 
 
 def test_extra_predictive_noise_names_slice_4():
+    """Slice 4 brought the extra predictive noise: the IPB takes the
+    distribution and adds its draws to the whole (M + N*, J) noise."""
     jbasis, jcost, _, _ = jax_ipb()
     tbasis, _ = carried_ipb(jbasis, jcost)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tbasis.replace(additional_predictive_noise_distribution=object())
+    extra = np.random.default_rng(9).standard_t(3.0, size=(12 + 4, 5))
+
+    class Fixed:
+        def sample(self, generator, shape, dtype=None):
+            return torch.as_tensor(extra, dtype=dtype).reshape(shape)
+
+    with_extra = tbasis.replace(additional_predictive_noise_distribution=Fixed())
+    x = torch.linspace(-1, 1, 4, dtype=torch.float64)[:, None]
+    u = torch.zeros((12, 5), dtype=torch.float64)
+    normals = torch.as_tensor(np.random.default_rng(10).normal(size=(16, 5)))
+    got = with_extra.sample_predictive_noise(u, x, normals=normals)
+    _close(got - tbasis.sample_predictive_noise(u, x, normals=normals), extra)
 
 
 def test_training_quantities_match_jax():

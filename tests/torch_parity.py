@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from projected_langevin_sampling_torch import convert
+from projected_langevin_sampling_tpu.models import gaussian_process as jgp
 from projected_langevin_sampling_tpu.models.basis import (
     build_inducing_point_basis,
     build_orthonormal_basis,
@@ -229,3 +230,73 @@ def update_noise(jbasis, steps=STEPS, seed=123):
     keys = jax.random.split(as_key(seed), steps)
     shape = (jbasis.approximation_dimension, J)
     return np.stack([np.asarray(jax.random.normal(k, shape, dtype=jbasis.dtype)) for k in keys])
+
+
+# --- baseline GPs (tests/test_torch_gp.py, tests/test_torch_calibration.py) ---
+def gp_data(n=30, d=1, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (n, d))
+    y = np.sin(2 * x[:, 0]) + 0.1 * rng.normal(size=n)
+    if d > 1:
+        y = y + 0.3 * x[:, 1:].sum(1)
+    return x, y
+
+
+def gp_jax_kernel(d=1, outputscale=1.2):
+    return ARDKernel(jnp.asarray(np.linspace(0.7, 1.1, d)), jnp.asarray(outputscale))
+
+
+def kernel_params(kernel) -> dict:
+    if isinstance(kernel, PLSKernel):
+        return {"base_kernel": kernel_params(kernel.base_kernel),
+                "approximation_samples": to_np(kernel.approximation_samples)}
+    return {"lengthscales": to_np(kernel.lengthscales), "outputscale": to_np(kernel.outputscale)}
+
+
+def likelihood_params(likelihood) -> dict:
+    name = type(likelihood).__name__
+    if name == "GaussianLikelihood":
+        return {"kind": "gaussian", "noise": to_np(likelihood.noise)}
+    if name == "StudentTLikelihood":
+        return {"kind": "student_t", "noise": to_np(likelihood.noise),
+                "degrees_of_freedom": likelihood.degrees_of_freedom}
+    return {"kind": "bernoulli"}
+
+
+def exact_gp_params(gp) -> dict:
+    params = {"mean_constant": to_np(gp.mean_constant), "kernel": kernel_params(gp.kernel),
+              "noise": to_np(gp.noise), "x_train": to_np(gp.x_train), "y_train": to_np(gp.y_train)}
+    if gp.fixed_noise_variances is not None:
+        params["fixed_noise_variances"] = to_np(gp.fixed_noise_variances)
+    return params
+
+
+def svgp_params(svgp) -> dict:
+    return {"mean_constant": to_np(svgp.mean_constant), "kernel": kernel_params(svgp.kernel),
+            "likelihood": likelihood_params(svgp.likelihood), "x_induce": to_np(svgp.x_induce),
+            "variational_mean": to_np(svgp.variational_mean),
+            "variational_chol": to_np(svgp.variational_chol), "jitter": svgp.jitter}
+
+
+def jax_svgp(likelihood="gaussian", pls=False, fitted=True, d=1, m=6):
+    """A JAX SVGP on :func:`gp_data` (inducing inputs its first m rows);
+    ``fitted``: a random variational state."""
+    x, y = gp_data(d=d)
+    kernel = gp_jax_kernel(d)
+    if pls:
+        kernel = PLSKernel(base_kernel=kernel, approximation_samples=jnp.asarray(x))
+    likelihoods = {
+        "gaussian": jgp.GaussianLikelihood(noise=jnp.asarray(0.05)),
+        "bernoulli": jgp.BernoulliLikelihood(),
+        "student_t": jgp.StudentTLikelihood(noise=jnp.asarray(0.04), degrees_of_freedom=4.5),
+    }
+    svgp = jgp.init_svgp(0.2, kernel, likelihoods[likelihood], jnp.asarray(x[:m]))
+    if fitted:
+        rng = np.random.default_rng(5)
+        svgp = svgp.replace(
+            variational_mean=jnp.asarray(rng.normal(size=m)),
+            variational_chol=jnp.asarray(np.tril(0.3 * rng.normal(size=(m, m))) + np.eye(m)),
+        )
+    if likelihood == "bernoulli":
+        y = (y > 0).astype(np.float64)
+    return svgp, x, y
