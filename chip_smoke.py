@@ -25,7 +25,15 @@ each run with the launch counters set to 0 just before it and read just after:
   ONB Gaussian PLS with Student-T extra predictive noise on B1, then
   TemperPLS, ConformalisePLS, TemperGP and ConformaliseGP with the test
   coverage of their 95% intervals; Dirichlet targets and a fixed-noise exact
-  GP on slice 2's labels, and spread tempering of slice 2's trained model.
+  GP on slice 2's labels, and spread tempering of slice 2's trained model;
+- slice 5 (phase 12), scale-out on a world-size-1 NCCL group and a 1 x 1
+  mesh at the headline shape: 2000 ``parallel_langevin_steps`` on B5 (the
+  injected-noise variant bit for bit ``langevin_steps``), B5's partial mode
+  on two row halves against the fused step, ``parallel_train_pls`` on B1
+  (bit for bit ``train_pls``, also at a patience that stops mid-run), B1,
+  B3 and B4 on two column shards against the whole run, the mesh-sharded
+  chunked predict against the single-device one, and the WDBC
+  classification demo twin on the card.
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
 tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
@@ -41,7 +49,8 @@ cores beside the fp32 SIMT bound of earlier runs, phase 8 B4's launches per
 run (one), its host enqueue and the device's idle share inside its call, and
 phase 9 B5's host time per call.
 
-Any failure raises; there is no CPU fallback.
+A probe of CUDA's initialisation in a subprocess runs first (it raises on a
+wedged GPU driver). Any failure raises; there is no CPU fallback.
 
 Run: python3 chip_smoke.py        (needs one CUDA card, nvcc under CUDA_HOME)
 
@@ -1235,9 +1244,10 @@ def phase_fused(pt, fused):
             require(err <= U_TOL9[kind] * scale, f"fused update disagrees: {bname} {kind}")
             errs.append(err)
             if basis is ipb and kind == "bernoulli_sigmoid":  # phase 10's langevin_steps cell
-                timed = (args, kw)
+                timed = (args, kw, got)
     res["max_abs_err"] = max(errs)
-    args, kw = timed
+    args, kw, got = timed
+    res["fused_call"] = timed  # phase 12 (b) holds the fused mode to this output
     res["ms"] = cuda_ms(lambda: fused.fused_update(*args, **kw), reps=20, warmup=2)
     res["plain_ms"] = cuda_ms(lambda: fused.fused_update_reference(*args, **kw), reps=10, warmup=1)
     split = profiled_device_split(lambda: fused.fused_update(*args, **kw), B5_KERNELS, 10)
@@ -1661,6 +1671,259 @@ def phase_slice4(pt, gram, counters, classifier):
             "backward": gp_backward + svgp_backward, "backward_ms": backward_times}
 
 
+# --------------------------------------------------------------------------
+# phase 12: slice 5, scale-out, on a one-rank mesh
+# --------------------------------------------------------------------------
+STEPS12, T_BIT12, PARTIAL_ROWS12 = 2000, 20, N // 2
+# (b) B5's partial mode over two row halves, summed, then the update,
+# against the fused step: fp32 with the sums over N in another order, as
+# phase 9's kernel against its plain version (U_TOL9, normwise)
+# (c), (d) energies of two column shards summed against the whole run's:
+# fp32 partial sums added in another order (phase 6's E_RTOL); (d) particles
+# of two shards against the whole run: the same draws, products summed over
+# other split-K slices when the shard is narrower (phase 6's W_TOL, normwise)
+# (c) the finite patience: the first of these whose stop, replayed on the
+# infinite-patience run's trace, falls inside the run
+PATIENCES12 = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1)
+# (d) the same for B3 and B4 in steps: the first (k + 1/2) eta that stops the
+# run inside it (the half step keeps the stop off the boundary sim_time =
+# patience, where fp32 sums of eta may fall either side); B3 at phase 6's
+# shape runs 2000 steps, since its energy still falls at each of the first 200
+STOP_STEPS12 = (1, 2, 4, 8, 16, 32, 64)
+
+
+def phase_scale_out(pt, counters, fused_call, smi):
+    """parallel/ on a world-size-1 NCCL group and a 1 x 1 mesh: (a) B5 steps
+    under parallel_langevin_steps, (b) B5's partial mode, (c) B1 under
+    parallel_train_pls and on two column shards, (d) B3 and B4 on two column
+    shards, (e) mesh-sharded chunked serving, (f) the WDBC demo twin."""
+    import torch.distributed as dist
+
+    from projected_langevin_sampling_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cuda")
+    try:
+        require(tuple(mesh.shape) == (1, 1) and dist.get_backend() == "nccl",
+                f"mesh {tuple(mesh.shape)} on {dist.get_backend()}")
+        ones = torch.ones(4, device="cuda")
+        dist.all_reduce(ones, group=mesh.get_group("particles"))
+        require(bool((ones == 1).all()), "NCCL all_reduce over a group of one")
+        log(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on a world-size-1 "
+            f"{dist.get_backend()} group; card {smi}")
+        return _scale_out(pt, counters, fused_call, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_shards(run, width):
+    """``run(j0, shard)`` on columns 0 .. width and width .. 2 width, and on
+    the whole; returns (whole, [shard 0, shard 1])."""
+    whole = run(0, None)
+    return whole, [run(j0, (j0, 2 * width)) for j0 in (0, width)]
+
+
+def _global_stop_on_two_shards(run, width, steps, eta, whole, shards):
+    """parallel_train_pls's early stop (``parallel/auto.train_to_global_stop``)
+    on two column shards in this process, each rank's all-reduce played by
+    adding the other shard's energies, against the whole run at a patience
+    that stops it inside the run: the same stop step, the particles within
+    W_TOL. ``run(j0, shard, steps, patience)``; ``whole`` and ``shards`` are
+    its infinite-patience runs. Returns (patience, stop, max|dU|, max|U|)."""
+    from projected_langevin_sampling_torch.parallel.auto import train_to_global_stop
+    from projected_langevin_sampling_torch.training import TrainResult
+    from projected_langevin_sampling_torch.utils.early_stopper import replay_early_stopper
+
+    trace = whole[1].double()
+    stops = {k: int(replay_early_stopper(trace, eta, (k + 0.5) * eta)[1]) for k in STOP_STEPS12}
+    k = next((k for k, stop in stops.items() if 2 <= stop < steps), None)
+    require(k is not None, f"no patience stops the run inside it: {stops}")
+    patience = (k + 0.5) * eta
+    want = run(0, None, steps, patience)
+    got = [train_to_global_stop(
+        lambda n, j0=j0: TrainResult(*run(j0, (j0, 2 * width), n, math.inf)),
+        steps, eta, patience, lambda e, other=shards[1 - i][1]: e + other)
+        for i, j0 in enumerate((0, width))]
+    stop = int(want[3])
+    require(stop < steps and all(int(r.steps_run) == stop for r in got),
+            f"global stop {[int(r.steps_run) for r in got]} against the whole run's {stop}")
+    scale = float(want[0].abs().max())
+    err = float((torch.cat([r.particles for r in got], dim=1) - want[0]).abs().max())
+    require(err <= W_TOL * scale, f"global stop particles: max|dU| {err} of {scale}")
+    return patience, stop, err, scale
+
+
+def _scale_out(pt, counters, fused_call, mesh):
+    from projected_langevin_sampling_torch.ops.cuda import fused_update as fused
+    from projected_langevin_sampling_torch.ops.cuda import general_train as gen
+    from projected_langevin_sampling_torch.ops.cuda import quadratic_train as quad
+    from projected_langevin_sampling_torch.ops.cuda import spectral_train as spec
+    from projected_langevin_sampling_torch.parallel import (
+        parallel_langevin_steps,
+        parallel_langevin_steps_with_noise,
+        parallel_train_pls,
+    )
+    from projected_langevin_sampling_torch.training import spectral_system_host
+    from projected_langevin_sampling_torch.utils.columns import ColumnShard
+    from projected_langevin_sampling_torch.utils.early_stopper import replay_early_stopper
+
+    x, y, z = headline_inputs(torch.float32)
+    x_test = torch.linspace(-3, 3, N_TEST, device="cuda")[:, None]
+    out = {}
+
+    # (a) B5 steps: the IPB Bernoulli cell of phase 10
+    ipb = headline_ipb(pt, x, z)
+    _, labels, _, _ = classification_inputs()
+    cost = pt.BernoulliCost(y_train=labels)
+    particles = ipb.initialise_particles(J, generator=0)
+    gen_z = torch.Generator(device="cuda").manual_seed(12)
+    normals = torch.randn((T_BIT12, M, J), generator=gen_z, device="cuda")
+    update_noise = torch.stack([ipb.sample_update_noise(J, normals=n) for n in normals])
+    got = parallel_langevin_steps_with_noise(mesh, ipb, cost, particles, update_noise, STEP_SIZE)
+    want = pt.langevin_steps(ipb, cost, particles, 0, STEP_SIZE, T_BIT12, fast_path="off",
+                             noise=normals)
+    require(torch.equal(got, want), "parallel_langevin_steps_with_noise is not langevin_steps")
+    (stepped, _), steps_s, counts = run_counted(
+        counters, lambda: parallel_langevin_steps(mesh, ipb, cost, particles, 0, STEP_SIZE,
+                                                  STEPS12))
+    require(counts["fused"] == STEPS12, f"parallel_langevin_steps launched B5 {counts['fused']} "
+                                        f"times, not {STEPS12}")
+    require(bool(torch.isfinite(stepped).all()), "parallel_langevin_steps particles")
+    accuracy = predict_accuracy(pt.PLS(ipb, cost), stepped, x_test)
+    _, single_s, _ = run_counted(counters, lambda: pt.langevin_steps(
+        ipb, cost, particles, 0, STEP_SIZE, STEPS12, fast_path="off"))
+    out["steps"] = counts
+    log(f"  (a) {T_BIT12} injected-noise steps equal langevin_steps bit for bit; "
+        f"parallel_langevin_steps {STEPS12} steps {1e3 * steps_s:.1f} ms = "
+        f"{1e3 * steps_s / STEPS12:.4f} ms/step against langevin_steps "
+        f"{1e3 * single_s / STEPS12:.4f} ms/step in this phase; accuracy {accuracy:.4f} "
+        f"(threshold {ACCURACY_MIN10}); launches {counts}")
+    require(accuracy > ACCURACY_MIN10, f"parallel_langevin_steps accuracy {accuracy}")
+
+    # (b) B5's partial mode on two row halves, summed, then the update
+    args, kw, phase9_out = fused_call
+    p, d, y_b, u, prior, noise, kind = args
+    again = fused.fused_update(*args, **kw)
+    require(torch.equal(again, phase9_out), "the fused mode changed against phase 9's call")
+    rows = (slice(0, PARTIAL_ROWS12), slice(PARTIAL_ROWS12, N))
+    dkw = dict(params=kw["params"], mean_shift=kw["mean_shift"])
+    halves = [(p[r].contiguous(), d[r].T.contiguous().T, y_b[r].contiguous()) for r in rows]
+    fused.fused_drift.launches = 0
+    drift = sum(fused.fused_drift(ph, dh, yh, u, kind, **dkw) for ph, dh, yh in halves)
+    split = fused.apply_drift(u, drift, prior, noise, kw["eta"])
+    torch.cuda.synchronize()
+    require(fused.fused_drift.launches == 2, "the partial mode did not launch")
+    err_b = float((split - again).abs().max())
+    scale_b = float(again.abs().max())
+    require(err_b <= U_TOL9[kind] * scale_b, f"partial mode disagrees: {err_b} of {scale_b}")
+    half_ms = cuda_ms(lambda: fused.fused_drift(*halves[0], u, kind, **dkw), reps=20, warmup=2)
+    whole_ms = cuda_ms(lambda: fused.fused_update(*args, **kw), reps=20, warmup=2)
+    out["partial_max_abs_err"] = err_b
+    log(f"  (b) B5 partial mode, N split {PARTIAL_ROWS12} + {N - PARTIAL_ROWS12}, summed, then "
+        f"the update, against the fused step: max|dU| {err_b:.3e} (max|U| {scale_b:.2f}, "
+        f"tolerance {U_TOL9[kind]} normwise); fused mode bit for bit phase 9's output; "
+        f"partial call on {PARTIAL_ROWS12} rows {half_ms:.4f} ms, fused call {whole_ms:.4f} ms")
+
+    # (c) B1 under parallel_train_pls: the ONB Gaussian auto (spectral) tier
+    onb = headline_basis(pt, x, z)
+    gcost = pt.GaussianCost(y_train=y, observation_noise=torch.tensor(0.1, device="cuda"))
+    pls = pt.PLS(onb, gcost)
+    u0 = pls.initialise_particles(J, generator=0)
+    res, train_s, counts = run_counted(counters, lambda: parallel_train_pls(
+        mesh, pls, particles=u0, number_of_epochs=STEPS, step_size=STEP_SIZE, generator=0))
+    require(counts["spectral"] == 1, f"parallel_train_pls launched B1 {counts['spectral']} times")
+    want_u, want_e = pt.train_pls(pls, u0, STEPS, STEP_SIZE, generator=0)
+    require(torch.equal(res.particles, want_u), "parallel_train_pls is not train_pls bit for bit")
+    energies = res.energies.tolist()
+    require(len(want_e) == STEPS and energies == want_e, "parallel_train_pls energies")
+    out["train"] = counts
+    sigma, q_in, _, b_rot, e_const = spectral_system_host(onb, gcost)
+    w0 = (q_in.T @ u0).contiguous()
+    b1kw = dict(eta=STEP_SIZE, patience=math.inf, e_const=e_const, num_steps=STEPS,
+                noise_scale=math.sqrt(2 * STEP_SIZE), seed=12345)
+    b1 = lambda j0, sh: spec.spectral_train(  # noqa: E731
+        w0 if sh is None else w0[:, j0:j0 + J // 2].contiguous(), 1 - STEP_SIZE * sigma,
+        STEP_SIZE * b_rot, sigma, b_rot, **b1kw, shard=None if sh is None else ColumnShard(*sh))
+    whole, shards = _two_shards(b1, J // 2)
+    torch.cuda.synchronize()
+    require(torch.equal(torch.cat([s[0] for s in shards], dim=1), whole[0]),
+            "B1 on two column shards is not the whole run's W bit for bit")
+    e_err = float(((shards[0][1] + shards[1][1] - whole[1]).abs() / whole[1].abs()).max())
+    require(e_err <= E_RTOL, f"B1 shard energies {e_err}")
+    trace = res.energies.double()
+    stops = {pat: int(replay_early_stopper(trace, STEP_SIZE, pat)[1]) for pat in PATIENCES12}
+    patience = next((pat for pat, st in stops.items() if 100 <= st <= STEPS - 100), None)
+    require(patience is not None, f"no patience stops the run mid-way: {stops}")
+    res_p = parallel_train_pls(mesh, pls, particles=u0, number_of_epochs=STEPS,
+                               step_size=STEP_SIZE, early_stopper_patience=patience, generator=0)
+    want_pu, want_pe = pt.train_pls(pls, u0, STEPS, STEP_SIZE, early_stopper_patience=patience,
+                                    generator=0)
+    stop = int(res_p.steps_run)
+    require(stop == len(want_pe) + 1 and torch.equal(res_p.particles, want_pu),
+            f"stop {stop} against train_pls's {len(want_pe) + 1}")
+    log(f"  (c) parallel_train_pls (auto = spectral, B1) {STEPS} steps {1e3 * train_s:.1f} ms = "
+        f"{1e3 * train_s / STEPS:.5f} ms/step, particles and energies equal to train_pls bit "
+        f"for bit; launches {counts}. B1 on columns 0..{J // 2} and {J // 2}..{J} "
+        f"(j0 = 0, {J // 2}): W bit "
+        f"for bit the whole run's, shard energies summed max rel err {e_err:.3e}; patience "
+        f"{patience}: stop at step {stop} of {STEPS}, the same as train_pls")
+
+    # (d) B3 and B4 on two column shards, and the run's early stop on them
+    prob = synthetic_general("bernoulli_sigmoid_smoothed", n=N6, m_k=M6, j=J6)
+    b3kw = {k: v for k, v in prob.items() if k != "u0"}
+    b3 = lambda j0, sh, steps=STEPS12, patience=math.inf: gen.general_train(  # noqa: E731
+        u0=prob["u0"] if sh is None else prob["u0"][:, j0:j0 + J6 // 2].contiguous(), **b3kw,
+        eta=ETA6, patience=patience, num_steps=steps, seed=7,
+        shard=None if sh is None else ColumnShard(*sh))
+    ipb_args, ipb_kw = quadratic_args(ipb, pt.GaussianCost(
+        y_train=y, observation_noise=torch.tensor(0.1, device="cuda")))
+    u4 = ipb.initialise_particles(J, generator=3)
+    b4 = lambda j0, sh, steps=STEPS12, patience=math.inf: quad.quadratic_train(  # noqa: E731
+        *ipb_args, u4 if sh is None else u4[:, j0:j0 + J // 2].contiguous(), **ipb_kw,
+        eta=STEP_SIZE, patience=patience, num_steps=steps, seed=7,
+        shard=None if sh is None else ColumnShard(*sh))
+    for label, run, width, eta in (("B3", b3, J6 // 2, ETA6), ("B4", b4, J // 2, STEP_SIZE)):
+        whole, shards = _two_shards(run, width)
+        torch.cuda.synchronize()
+        scale = float(whole[0].abs().max())
+        err = float((torch.cat([s[0] for s in shards], dim=1) - whole[0]).abs().max())
+        e_err = float(((shards[0][1] + shards[1][1] - whole[1]).abs() / whole[1].abs()).max())
+        require(err <= W_TOL * scale and e_err <= E_RTOL,
+                f"{label} on two column shards: max|dU| {err} of {scale}, energies {e_err}")
+        patience, stop, stop_err, stop_scale = _global_stop_on_two_shards(
+            run, width, STEPS12, eta, whole, shards)
+        log(f"  (d) {label} on columns 0..{width} and {width}..{2 * width} (j0 = 0, {width}), "
+            f"{STEPS12} steps: max|dU| against the whole run {err:.3e} (max|U| {scale:.2f}, "
+            f"tolerance {W_TOL} normwise), shard energies summed max rel err {e_err:.3e}; "
+            f"the run's stop on the two shards (train_to_global_stop) at patience "
+            f"{patience:.3g}: step {stop} of {STEPS12}, the whole run's, max|dU| {stop_err:.3e} "
+            f"(max|U| {stop_scale:.2f})")
+
+    # (e) mesh-sharded chunked serving, against the single-device chunked call
+    samples, mesh_s, counts = run_counted(counters, lambda: pls.predict_samples(
+        res.particles, x_test, generator=0, chunk_size=CHUNK, mesh=mesh))
+    single, single_s, single_counts = run_counted(counters, lambda: pls.predict_samples(
+        res.particles, x_test, generator=0, chunk_size=CHUNK))
+    require(counts["gram"] >= 2 and counts == single_counts,
+            f"the mesh predict launched {counts}, the single-device call {single_counts}")
+    err_e = float((samples - single).abs().max())
+    scale_e = float(single.abs().max())
+    require(tuple(samples.shape) == (N_TEST, J) and err_e <= 1e-5 * scale_e,
+            f"mesh predict disagrees: {err_e} of {scale_e}")
+    out["predict"] = counts
+    log(f"  (e) predict_samples(mesh=) N*={N_TEST} chunk {CHUNK}: {1e3 * mesh_s:.1f} ms against "
+        f"the single-device chunked call's {1e3 * single_s:.1f} ms; max|d| {err_e:.3e} (max "
+        f"{scale_e:.2f}; bit for bit: {bool(torch.equal(samples, single))}); launches {counts}")
+
+    # (f) the WDBC classification demo twin, on the card
+    t0 = time.perf_counter()
+    accuracy = runpy.run_path(os.path.join(ROOT, "examples", "classification_demo_torch.py"))[
+        "main"]()
+    require(accuracy > 0.9, f"WDBC demo accuracy {accuracy}")
+    log(f"  (f) examples/classification_demo_torch.py on the card: accuracy {accuracy:.4f} "
+        f"(threshold 0.9) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1668,6 +1931,12 @@ def main() -> int:
     import projected_langevin_sampling_torch as pt
     from projected_langevin_sampling_torch.ops.cuda import build
     from projected_langevin_sampling_torch.ops.cuda import gram, spectral_train as spec
+    from projected_langevin_sampling_torch.utils.backend import ensure_live_backend
+
+    # a GPU driver that hangs CUDA's initialisation hangs a child, not this run
+    t0 = time.perf_counter()
+    ensure_live_backend(120.0, context="chip_smoke")
+    log(f"backend probe: CUDA initialises in a subprocess ({time.perf_counter() - t0:.1f} s)")
     from projected_langevin_sampling_torch.ops.cuda import general_train as gen
     from projected_langevin_sampling_torch.ops.cuda import quadratic_train as quad
     from projected_langevin_sampling_torch.ops.cuda import fused_update as fused
@@ -1744,6 +2013,9 @@ def main() -> int:
     launches_11 = phase(f"phase 11: slice 4 main path, the UCI regression protocol at kin8nm's "
                         f"shape (N={N11}, D={D11}, fp64)", phase_slice4, pt, gram, counters,
                         classifier)
+    phase(f"phase 12: slice 5, scale-out on a 1 x 1 mesh, N={N}, M={M}, J={J}, fp32",
+          phase_scale_out, pt, dict(counters, partial=fused.fused_drift),
+          fused_res.pop("fused_call"), smi)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",

@@ -11,7 +11,9 @@ exponential and preconditioned discretisations, the throughput path
 normal) predictive noise, the baseline GPs (exact GP, SVGP, their
 likelihoods, Dirichlet targets) and their fits, and the calibration layer
 (tempering of PLS and GPs, spread tempering of PLS classifiers, split
-conformal prediction). Five kernels are
+conformal prediction), and scale-out over ``torch.distributed``
+(``parallel/``: a (data, particles) mesh, sharded Langevin steps, training
+with the particles sharded, mesh-sharded chunked serving). Five kernels are
 written by hand for ``sm_90a`` (``csrc/``): the whole-run spectral,
 general-cost and quadratic trainers, the fused general update and the ARD
 gram. Entry points put their tensors on ``cuda`` unless the caller passes
@@ -86,6 +88,15 @@ from projected_langevin_sampling_torch.models.temper.pls_classification import (
     TemperPLSClassification,
 )
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel  # noqa: E402
+from projected_langevin_sampling_torch.parallel import (  # noqa: E402
+    DATA_AXIS,
+    PARTICLE_AXIS,
+    initialize_multi_host,
+    make_mesh,
+    parallel_langevin_steps,
+    parallel_langevin_steps_with_noise,
+    parallel_train_pls,
+)
 from projected_langevin_sampling_torch.training import langevin_steps, train_pls  # noqa: E402
 
 __version__ = "0.1.0"
@@ -129,4 +140,11 @@ __all__ = [
     "dirichlet_classification_targets",
     "fit_exact_gp",
     "fit_svgp",
+    "DATA_AXIS",
+    "PARTICLE_AXIS",
+    "initialize_multi_host",
+    "make_mesh",
+    "parallel_train_pls",
+    "parallel_langevin_steps",
+    "parallel_langevin_steps_with_noise",
 ]

@@ -45,6 +45,13 @@
 // slices, 256 blocks (ops/cuda/tc_product.py picks S from the shape alone).
 // D is read in either layout, (N, M) (P) or its transpose stored (M, N)
 // (k(Z, X)), so neither is copied.
+//
+// Partial mode (the sharded step of parallel/sharded.py on a mesh whose data
+// axis is more than 1): the same two launches over a data rank's rows,
+// with the update kernel's depth N only, and its epilogue writing the
+// split-K-reduced tile of D^T dc into u_out (M, J). The caller sums these
+// over the data ranks and applies the prior, the noise and eta; the fused
+// mode's code is unchanged.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -115,8 +122,9 @@ dc_kernel(const float* __restrict__ p, const float* __restrict__ u, const float*
 // U' = U - eta (D^T dc + prior(U)) + root2eta noise on one (M, J) tile:
 // slice blockIdx.z of the depth N (+ M for a matrix prior), then the update
 // in the tile's last block to arrive. D_KMAJOR: d is D (N, M); else d is D^T
-// stored (M, N).
-template <bool D_KMAJOR, bool PRIOR_DIAG>
+// stored (M, N). PARTIAL (with PRIOR_DIAG, so the depth is N): the tile of
+// D^T dc itself goes to u_out, and u, prior and noise are not read.
+template <bool D_KMAJOR, bool PRIOR_DIAG, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS, tc::MIN_BLOCKS)
 update_kernel(const float* __restrict__ d, const float* __restrict__ dc,
               const float* __restrict__ u, const float* __restrict__ prior,
@@ -147,8 +155,12 @@ update_kernel(const float* __restrict__ d, const float* __restrict__ dc,
     const int r = row0 + e / BN, c = col0 + e % BN;
     if (r >= m || c >= j) continue;
     const size_t k = (size_t)r * j + c;
-    const float uv = u[k];
     const float g = smem[(e / BN) * tc::TILE_STRIDE + e % BN];
+    if (PARTIAL) {
+      u_out[k] = g;
+      continue;
+    }
+    const float uv = u[k];
     const float drift = PRIOR_DIAG ? g + prior[r] * uv : g;
     u_out[k] = uv - eta * drift + root2eta * noise[k];
   }
@@ -170,14 +182,14 @@ cudaError_t launch_dc(dim3 grid, cudaStream_t stream, const float* p, const floa
   return cudaGetLastError();
 }
 
-template <bool D_KMAJOR, bool PRIOR_DIAG>
+template <bool D_KMAJOR, bool PRIOR_DIAG, bool PARTIAL = false>
 cudaError_t launch_update(dim3 grid, cudaStream_t stream, const float* d, const float* dc,
                           const float* u, const float* prior, const float* noise, float* u_out,
                           float* slabs, int* counters, int n, int m, int j, float eta,
                           float root2eta) {
-  cudaError_t err = allow_ring(update_kernel<D_KMAJOR, PRIOR_DIAG>);
+  cudaError_t err = allow_ring(update_kernel<D_KMAJOR, PRIOR_DIAG, PARTIAL>);
   if (err != cudaSuccess) return err;
-  update_kernel<D_KMAJOR, PRIOR_DIAG><<<grid, THREADS, tc::SMEM_BYTES, stream>>>(
+  update_kernel<D_KMAJOR, PRIOR_DIAG, PARTIAL><<<grid, THREADS, tc::SMEM_BYTES, stream>>>(
       d, dc, u, prior, noise, u_out, slabs, counters, n, m, j, (int)grid.z, eta, root2eta);
   return cudaGetLastError();
 }
@@ -188,13 +200,15 @@ cudaError_t launch_update(dim3 grid, cudaStream_t stream, const float* d, const 
 // (N, M) row-major, else D^T (M, N) row-major. prior_diag: prior is (M,),
 // else (M, M). dc is an (N, J) scratch buffer; counters holds one int per
 // update tile (M, J) and slabs `slices` partial tiles per update tile when
-// slices > 1 (tc_product.cuh; ops/cuda/tc_product.py sizes them). Returns a
-// CUDA error code, 0 on success.
+// slices > 1 (tc_product.cuh; ops/cuda/tc_product.py sizes them). partial:
+// u_out gets D^T dc (M, J) over these N rows and prior, noise, prior_diag and
+// eta are not used (slices then cut the depth N alone). Returns a CUDA error
+// code, 0 on success.
 extern "C" int plst_fused_update(const void* p, const void* d, const void* y, const void* u,
                                  const void* prior, const void* noise, void* dc, void* u_out,
                                  void* slabs, void* counters, int n, int m, int j, int d_kmajor,
-                                 int prior_diag, int kind, int slices, float p0, float p1,
-                                 float m0, float eta, void* stream_ptr) {
+                                 int prior_diag, int partial, int kind, int slices, float p0,
+                                 float p1, float m0, float eta, void* stream_ptr) {
   if (n <= 0 || m <= 0 || j <= 0 || slices < 1 || kind < GAUSSIAN || kind > STUDENT_T) {
     return (int)cudaErrorInvalidValue;
   }
@@ -232,7 +246,12 @@ extern "C" int plst_fused_update(const void* p, const void* d, const void* y, co
   const float* np_ = static_cast<const float*>(noise);
   float* outp = static_cast<float*>(u_out);
   const float root2eta = sqrtf(2.0f * eta);
-  if (d_kmajor) {
+  if (partial) {
+    err = d_kmajor ? launch_update<true, true, true>(grid_up, stream, dp_, dcp, up, prp, np_,
+                                                     outp, slabp, cnt, n, m, j, eta, root2eta)
+                   : launch_update<false, true, true>(grid_up, stream, dp_, dcp, up, prp, np_,
+                                                      outp, slabp, cnt, n, m, j, eta, root2eta);
+  } else if (d_kmajor) {
     err = prior_diag ? launch_update<true, true>(grid_up, stream, dp_, dcp, up, prp, np_, outp,
                                                  slabp, cnt, n, m, j, eta, root2eta)
                      : launch_update<true, false>(grid_up, stream, dp_, dcp, up, prp, np_, outp,

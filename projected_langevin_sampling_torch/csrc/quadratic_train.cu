@@ -54,7 +54,11 @@
 // and the blocks' partials too (the grid is the card's), and no atomic
 // touches a value. Noise: Philox4x32-10 (philox.cuh) counted on (column
 // group of 4, row, step, STREAM_ID), so the draws do not depend on the
-// tiling or the grid.
+// tiling or the grid. The column group is the whole run's: a shard of
+// columns j0 .. j0 + j of a j_total-column run (a particle shard of
+// parallel/auto.py; j0 a multiple of 4) draws exactly the normals of those
+// columns in the unsharded run, and its energies are its share, its sums
+// over j_total.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,6 +98,7 @@ struct Run {
   double* partials;  // one a block, two sets by the parity of the phase
   float* energies;
   int m, j, num_steps, shared, zero_noise;
+  int j0;  // the run's column of local column 0 (a multiple of GROUP)
   int products;  // of a phase: A U, then E U (non-shared), then S eps (non-shared, noise)
   int slices;    // of the depth M of each product
   float eta, root2eta, patience;
@@ -115,8 +120,9 @@ __device__ __forceinline__ void draw_normals(const Run& r, int step) {
        idx += gridDim.x * THREADS) {
     const int row = idx / groups, cgroup = idx % groups;
     float z[4];
-    plst::normals4(make_uint4((uint32_t)cgroup, (uint32_t)row, (uint32_t)step, STREAM_ID), r.key,
-                   z);
+    plst::normals4(
+        make_uint4((uint32_t)(cgroup + r.j0 / GROUP), (uint32_t)row, (uint32_t)step, STREAM_ID),
+        r.key, z);
 #pragma unroll
     for (int jj = 0; jj < GROUP; ++jj) {
       const int c = cgroup * GROUP + jj;
@@ -325,15 +331,19 @@ extern "C" int plst_quadratic_coresident(int* blocks) { return (int)coresident(b
 // be NaN-filled by the caller. arrived holds one int per 64 x 128 tile of
 // (M, J), slabs one partial tile per item (products x slices x tiles),
 // partials two doubles per block, at most two per item
-// (ops/cuda/tc_product.py's persistent_phase sizes them). Returns a CUDA error code, 0 on success: a launch the card
+// (ops/cuda/tc_product.py's persistent_phase sizes them). The particles are
+// columns j0 .. j0 + j of a j_total-column run (j0 = 0, j_total = j
+// unsharded): the noise is counted on the run's column and the energies are
+// sums over j_total. Returns a CUDA error code, 0 on success: a launch the card
 // refuses returns its error.
 extern "C" int plst_quadratic_train(const void* a, const void* e, const void* s, const void* b,
                                     const void* e_bias, void* u_a, void* u_b, void* eps,
                                     void* slabs, void* arrived, void* partials, void* energies,
-                                    int m, int j, int num_steps, int shared, int slices,
-                                    float eta, float patience, double e_const,
+                                    int m, int j, int j0, int j_total, int num_steps, int shared,
+                                    int slices, float eta, float patience, double e_const,
                                     unsigned long long seed, int zero_noise, void* stream_ptr) {
   if (m <= 0 || j <= 0 || num_steps < 0 || slices < 1) return (int)cudaErrorInvalidValue;
+  if (j0 < 0 || j0 % GROUP || j_total < j0 + j) return (int)cudaErrorInvalidValue;
   if (num_steps == 0) return 0;
   int blocks = 0;
   cudaError_t err = coresident(&blocks);
@@ -357,13 +367,14 @@ extern "C" int plst_quadratic_train(const void* a, const void* e, const void* s,
   r.energies = static_cast<float*>(energies);
   r.m = m;
   r.j = j;
+  r.j0 = j0;
   r.num_steps = num_steps;
   r.shared = shared;
   r.zero_noise = zero_noise;
   r.eta = eta;
   r.root2eta = sqrtf(2.0f * eta);
   r.patience = patience;
-  r.inv_j = 1.0 / (double)j;
+  r.inv_j = 1.0 / (double)j_total;
   r.e_const = e_const;
   r.key = plst::philox_key(seed);
   void* args[] = {&r};

@@ -34,7 +34,10 @@
 //
 // Noise: Philox4x32-10 (philox.cuh's bits) keyed on the 64-bit seed and
 // counted on (group of four elements, step), so any rerun of steps 0..s
-// reproduces the same draws whatever the launch layout. Uniforms are 24-bit
+// reproduces the same draws whatever the launch layout. The group is the
+// whole run's: a launch on a shard of columns j0 .. j0 + j of a j_total-column
+// run (a particle shard of parallel/auto.py) draws exactly the normals of
+// those columns in the unsharded run (run_group). Uniforms are 24-bit
 // and lie in (0, 1]; both Box-Muller outputs are used; everything is fp32, as
 // on the TPU. ops/cuda/spectral_train.py holds a CPU mirror of the draws.
 //
@@ -103,6 +106,18 @@ __device__ __forceinline__ GroupConstants group_constants(long long group, const
           (PHILOX_M0 * glo) ^ rk.k1[1]};
 }
 
+// The whole run's group of a local group of four elements: local element
+// e = 4 group lies at (row e / j, column e % j) of a shard whose columns start
+// at j0 of a j_total-column run, and the run's flat index of that element is
+// row j_total + j0 + column. Unsharded (j0 = 0, j_total = j) this is the local
+// group itself. A shard needs j, j0 and j_total to be multiples of 4 (the
+// entry point checks), so that a group's four elements stay in one row.
+__device__ __forceinline__ long long run_group(long long group, int j, long long j0,
+                                               long long j_total) {
+  const long long e = 4 * group;
+  return ((e / j) * j_total + j0 + e % j) / 4;
+}
+
 __device__ __forceinline__ uint4 philox_bits(const GroupConstants& g, uint32_t sh, uint32_t sl,
                                              const RoundKeys& rk) {
   const uint32_t x1 = sh ^ g.a;
@@ -160,8 +175,8 @@ spectral_train_kernel(const float* __restrict__ w0, float* __restrict__ w_out,
                       const float* __restrict__ decay, const float* __restrict__ shift,
                       const float* __restrict__ sigma, const float* __restrict__ b,
                       float* __restrict__ partials,  // (gridDim.x, ld): block-major
-                      long long ld, long long total, int j, int step0, int num_steps,
-                      float noise_scale, RoundKeys rk) {
+                      long long ld, long long total, int j, long long j0, long long j_total,
+                      int step0, int num_steps, float noise_scale, RoundKeys rk) {
   // per-warp energies of an interval of steps, row s + 1 for step s (row 0
   // takes the empty sum a step 0 writes), two intervals deep: a warp writing
   // interval c + 2 has passed interval c + 1's barrier, so warp 0 has finished
@@ -188,7 +203,9 @@ spectral_train_kernel(const float* __restrict__ w0, float* __restrict__ w_out,
 
   GroupConstants gc[GROUPS_PER_THREAD];
 #pragma unroll
-  for (int q = 0; q < GROUPS_PER_THREAD; ++q) gc[q] = group_constants(group0 + q, rk);
+  for (int q = 0; q < GROUPS_PER_THREAD; ++q) {
+    gc[q] = group_constants(run_group(group0 + q, j, j0, j_total), rk);
+  }
   const float r2_scale = -1.3862943611198906f * noise_scale * noise_scale;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -250,11 +267,17 @@ spectral_train_kernel(const float* __restrict__ w0, float* __restrict__ w_out,
 extern "C" int plst_spectral_train(const void* w0, void* w_out, const void* decay,
                                    const void* shift, const void* sigma, const void* b,
                                    void* partials, long long ld, long long total, int j,
-                                   int num_blocks, int step0, int num_steps, float noise_scale,
-                                   unsigned long long seed, int zero_noise, void* stream) {
+                                   long long j0, long long j_total, int num_blocks, int step0,
+                                   int num_steps, float noise_scale, unsigned long long seed,
+                                   int zero_noise, void* stream) {
   if (total <= 0 || num_steps <= 0) return 0;
   const long long per_block = (long long)THREADS * ELEMENTS_PER_THREAD;
   if (j <= 0 || ld < num_steps || num_blocks != (int)((total + per_block - 1) / per_block)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // a shard of columns: whole groups of four in every row (run_group)
+  const bool sharded = j0 != 0 || j_total != j;
+  if (j0 < 0 || j_total < j0 + j || (sharded && (j % 4 || j0 % 4 || j_total % 4))) {
     return (int)cudaErrorInvalidValue;
   }
   const RoundKeys rk = round_keys(plst::philox_key(seed));
@@ -264,6 +287,7 @@ extern "C" int plst_spectral_train(const void* w0, void* w_out, const void* deca
       static_cast<const float*>(w0), static_cast<float*>(w_out),
       static_cast<const float*>(decay), static_cast<const float*>(shift),
       static_cast<const float*>(sigma), static_cast<const float*>(b),
-      static_cast<float*>(partials), ld, total, j, step0, num_steps, noise_scale, rk);
+      static_cast<float*>(partials), ld, total, j, j0, j_total, step0, num_steps, noise_scale,
+      rk);
   return (int)cudaGetLastError();
 }

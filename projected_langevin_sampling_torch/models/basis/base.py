@@ -89,12 +89,26 @@ class PLSBasisMixin:
         return dist.sample(generator, shape, dtype=self.dtype)
 
     def _with_additional_predictive_noise(
-        self, noise: torch.Tensor, generator: GeneratorLike
+        self, noise: torch.Tensor, generator: GeneratorLike, extra: torch.Tensor | None = None
     ) -> torch.Tensor:
-        """``noise`` plus the extra predictive noise, drawn from ``generator``
-        after the Gaussian draw; one independent draw per block of a batched
-        (B, M + c, J) noise, as the JAX package's per-chunk draws."""
-        extra = self._sample_additional_predictive_noise(
-            as_generator(generator, device=self.device), tuple(noise.shape)
-        )
+        """``noise`` plus the extra predictive noise: ``extra`` where given,
+        else drawn from ``generator`` after the Gaussian draw; one independent
+        draw per block of a batched (B, M + c, J) noise, as the JAX package's
+        per-chunk draws."""
+        if extra is None:
+            extra = self._sample_additional_predictive_noise(
+                as_generator(generator, device=self.device), tuple(noise.shape)
+            )
         return noise if extra is None else noise + extra
+
+    def draw_predictive_normals(
+        self, generator: torch.Generator, shape: tuple[int, ...]
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``(normals, extra)``: the standard normals of a predictive draw of
+        ``shape`` (..., M + c, J) and the basis's extra predictive noise of
+        the same shape (None where it has none), from ``generator`` in the
+        order :meth:`sample_predictive_noise` draws them. Given back to
+        ``predict_untransformed_samples``, they reproduce its own draw; a
+        batch's blocks may take their slices of them."""
+        normals = torch.randn(shape, generator=generator, dtype=self.dtype, device=self.device)
+        return normals, self._sample_additional_predictive_noise(generator, shape)

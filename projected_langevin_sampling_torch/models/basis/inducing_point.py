@@ -93,11 +93,15 @@ class InducingPointBasis(PLSBasisMixin):
             pred = pred + self.mean_constant
         return pred
 
-    def calculate_energy_potential(self, particles: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
-        """mean_j [cost_j + M/2 ||K^{-1} U_j||^2]."""
+    def calculate_particle_energies(self, particles: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+        """(J,) cost_j + M/2 ||K^{-1} U_j||^2."""
         kinv_u = self.inv_base_gram_induce @ particles
         prior = 0.5 * self.approximation_dimension * torch.sum(torch.square(kinv_u), dim=0)
-        return torch.mean(cost + prior)
+        return cost + prior
+
+    def calculate_energy_potential(self, particles: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+        """mean_j [cost_j + M/2 ||K^{-1} U_j||^2]."""
+        return torch.mean(self.calculate_particle_energies(particles, cost))
 
     def sample_update_noise(
         self, number_of_particles: int, generator: torch.Generator | None = None,
@@ -162,17 +166,18 @@ class InducingPointBasis(PLSBasisMixin):
         generator: GeneratorLike = None,
         augmentation_samples: torch.Tensor | None = None,
         normals: torch.Tensor | None = None,
+        extra: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Joint MVN draw (..., M + c, J) of G([Z, x]), plus the extra
         predictive noise where the basis has one; ``normals`` injects the
-        standard normals."""
+        standard normals and ``extra`` the extra noise."""
         cov = self.predictive_noise_covariance(x, augmentation_samples)
         if normals is None:
             generator = as_generator(generator, device=self.device)
         noise = sample_with_factor(
             psd_sqrt(cov), particles.shape[1], generator=generator, normals=normals
         )
-        return self._with_additional_predictive_noise(noise, generator)
+        return self._with_additional_predictive_noise(noise, generator, extra)
 
     def predict_untransformed_samples(
         self,
@@ -181,6 +186,8 @@ class InducingPointBasis(PLSBasisMixin):
         noise: torch.Tensor | None = None,
         generator: GeneratorLike = None,
         augmentation_samples: torch.Tensor | None = None,
+        normals: torch.Tensor | None = None,
+        extra: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """G(x) + r(x,Z) r_aug(Z,Z)^{-1} (U - G(Z)) (reference
         ``inducing_point.py:204-240``), with the augmented r(Z,Z) in the solve.
@@ -189,7 +196,9 @@ class InducingPointBasis(PLSBasisMixin):
         jitter (:func:`robust_cholesky`). x (B, c, D), the chunked predict:
         the JAX package's traced route, an eigh with the eigenvalues floored at
         eps max|w| (``inducing_point.py:180-189``); every block shares r_aug(Z,Z),
-        so it is factored once."""
+        so it is factored once. The noise is ``noise``, else drawn with
+        ``normals`` and ``extra`` injected where given
+        (:meth:`sample_predictive_noise`)."""
         x = x if x.ndim == 3 else _as_2d(x)
         flat_x = x.reshape(-1, x.shape[-1])
         samples = self._approximation_samples(flat_x, augmentation_samples)
@@ -200,7 +209,8 @@ class InducingPointBasis(PLSBasisMixin):
         gram_induce_aug = (k_zs @ k_zs.T) / samples.shape[0]  # (M, M)
         if noise is None:
             noise = self.sample_predictive_noise(
-                particles, x, generator=generator, augmentation_samples=augmentation_samples
+                particles, x, generator=generator, augmentation_samples=augmentation_samples,
+                normals=normals, extra=extra,
             )
         m = self.approximation_dimension
         rhs = particles - noise[..., :m, :]

@@ -91,10 +91,14 @@ class OrthonormalBasis(PLSBasisMixin):
             pred = pred + self.mean_constant
         return pred
 
+    def calculate_particle_energies(self, particles: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+        """(J,) cost_j + 1/2 U_j^T Lambda^{-1} U_j."""
+        prior = 0.5 * torch.sum(torch.square(particles) / self.eigenvalues[:, None], dim=0)
+        return cost + prior
+
     def calculate_energy_potential(self, particles: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
         """mean_j [cost_j + 1/2 U_j^T Lambda^{-1} U_j]."""
-        prior = 0.5 * torch.sum(torch.square(particles) / self.eigenvalues[:, None], dim=0)
-        return torch.mean(cost + prior)
+        return torch.mean(self.calculate_particle_energies(particles, cost))
 
     def sample_update_noise(
         self, number_of_particles: int, generator: torch.Generator | None = None,
@@ -174,18 +178,19 @@ class OrthonormalBasis(PLSBasisMixin):
         augmentation_samples: torch.Tensor | None = None,
         base_gram_x_induce: torch.Tensor | None = None,
         normals: torch.Tensor | None = None,
+        extra: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Joint MVN draw (..., M_k + c, J) over [coefficients; test values]
         (reference ``orthonormal.py:161-214``), plus the extra predictive
         noise where the basis has one; ``normals`` injects the standard
-        normals."""
+        normals and ``extra`` the extra noise."""
         cov = self.predictive_noise_covariance(x, augmentation_samples, base_gram_x_induce)
         if normals is None:
             generator = as_generator(generator, device=self.device)
         noise = sample_with_factor(
             psd_sqrt(cov), particles.shape[1], generator=generator, normals=normals
         )
-        return self._with_additional_predictive_noise(noise, generator)
+        return self._with_additional_predictive_noise(noise, generator, extra)
 
     def predict_untransformed_samples(
         self,
@@ -194,16 +199,20 @@ class OrthonormalBasis(PLSBasisMixin):
         noise: torch.Tensor | None = None,
         generator: GeneratorLike = None,
         augmentation_samples: torch.Tensor | None = None,
+        normals: torch.Tensor | None = None,
+        extra: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Matheron pathwise conditioning noise_x + k(x,Z) Vt (U - noise_Z)
-        (reference ``orthonormal.py:216-244``); x of shape (c, D) or (B, c, D)."""
+        (reference ``orthonormal.py:216-244``); x of shape (c, D) or (B, c, D).
+        The noise is ``noise``, else drawn with ``normals`` and ``extra``
+        injected where given (:meth:`sample_predictive_noise`)."""
         x = x if x.ndim == 3 else _as_2d(x)
         base_gram_x_induce = self._gram_induce(x)
         if noise is None:
             noise = self.sample_predictive_noise(
                 particles, x, generator=generator,
                 augmentation_samples=augmentation_samples,
-                base_gram_x_induce=base_gram_x_induce,
+                base_gram_x_induce=base_gram_x_induce, normals=normals, extra=extra,
             )
         m_k = self.approximation_dimension
         out = noise[..., m_k:, :] + base_gram_x_induce @ (

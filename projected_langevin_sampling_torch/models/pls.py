@@ -107,6 +107,7 @@ class PLS:
         observation_noise: torch.Tensor | None = None,
         generator: GeneratorLike = None,
         chunk_size: int | None = None,
+        mesh=None,
     ) -> torch.Tensor:
         """(N*, J) output-space samples; noise may be injected.
 
@@ -114,7 +115,14 @@ class PLS:
         (O(N*/c (M + c)^3) instead of O((M + N*)^3)). Every point's marginal
         law is unchanged; only the correlations between points in different
         blocks are dropped. The blocks are one batch: one batched eigh, with
-        the approximation samples augmented by the whole test batch once."""
+        the approximation samples augmented by the whole test batch once.
+
+        ``mesh`` (with ``chunk_size``): spread the blocks over the mesh's last
+        axis, their count padded to a multiple of it. Every rank draws the
+        whole batch's normals from the same generator state and keeps its own
+        blocks', computes them (its grams on the gram kernel), and one
+        all-gather puts the blocks together; the padded rows are dropped. The
+        draws are the single-device chunked call's at the same block count."""
         generator = as_generator(generator, device=particles.device)
         if chunk_size is None or x.shape[0] <= chunk_size or predictive_noise is not None:
             untransformed = self.basis.predict_untransformed_samples(
@@ -123,6 +131,9 @@ class PLS:
         else:
             n, c = x.shape[0], chunk_size
             n_blocks = -(-n // c)
+            if mesh is not None:
+                serve = mesh.shape[-1]
+                n_blocks = -(-n_blocks // serve) * serve
             pad = n_blocks * c - n
             # pad with the last test point; duplicates only make a block's
             # covariance PSD-singular, which the eigenvalue clip handles
@@ -136,12 +147,26 @@ class PLS:
                     ),
                 )
             )
-            untransformed = basis_aug.predict_untransformed_samples(
+            size, index = 1, 0
+            if mesh is not None:
+                from projected_langevin_sampling_torch.parallel.mesh import axis, gather_blocks
+
+                group, size, index = axis(mesh, mesh.mesh_dim_names[-1])
+            # the whole batch's draws on every rank, each rank's blocks sliced
+            normals, extra = basis_aug.draw_predictive_normals(
+                generator, (n_blocks, basis_aug.approximation_dimension + c, particles.shape[1])
+            )
+            mine = slice(index * n_blocks // size, (index + 1) * n_blocks // size)
+            blocks = basis_aug.predict_untransformed_samples(
                 particles=particles,
-                x=x_padded.reshape(n_blocks, c, x.shape[1]),
-                generator=generator,
+                x=x_padded.reshape(n_blocks, c, x.shape[1])[mine],
+                normals=normals[mine],
+                extra=None if extra is None else extra[mine],
                 augmentation_samples=x.new_zeros((0, x.shape[1])),
-            ).reshape(n_blocks * c, particles.shape[1])[:n]
+            )
+            if size > 1:
+                blocks = gather_blocks(blocks, group, size)
+            untransformed = blocks.reshape(n_blocks * c, particles.shape[1])[:n]
         return self.cost.predict_samples(
             untransformed_samples=untransformed,
             observation_noise=observation_noise,
@@ -167,6 +192,7 @@ class PLS:
         observation_noise: torch.Tensor | None = None,
         generator: GeneratorLike = None,
         chunk_size: int | None = None,
+        mesh=None,
     ):
         prediction_samples = self.predict_samples(
             particles=particles,
@@ -175,6 +201,7 @@ class PLS:
             observation_noise=observation_noise,
             generator=generator,
             chunk_size=chunk_size,
+            mesh=mesh,
         )
         return self.cost.predict(prediction_samples=prediction_samples)
 

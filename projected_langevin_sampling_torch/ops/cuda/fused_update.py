@@ -33,6 +33,13 @@ cast at entry and exit, and runs :func:`fused_update_reference` only for
 tensors that lie on the CPU. ``fused_update.launches`` counts launched
 updates. :func:`dc_kind_for_cost` decides from the cost's type alone which
 costs have a closed form here.
+
+:func:`fused_drift` is the kernel's partial mode, for a step whose N rows
+are spread over the data ranks of a mesh (``parallel/sharded.py``): the same
+two launches return D^T dc over the given rows, (M, J), with no prior, noise
+or eta; the caller sums it over the ranks and finishes the step with
+:func:`apply_drift`. ``fused_drift.launches`` counts its launches and
+:func:`fused_drift_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -68,7 +75,7 @@ OPS_PER_ELEMENT = {
 # per element of U: the prior term, eta, the noise and the update
 OPS_PER_UPDATE_ELEMENT = 6
 
-_SIGNATURES = {"plst_fused_update": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+_SIGNATURES = {"plst_fused_update": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                                     + [ctypes.c_float] * 4 + [ctypes.c_void_p]}
 
 
@@ -116,6 +123,30 @@ def cost_derivative(kind: str, f: torch.Tensor, y: torch.Tensor, params) -> torc
     raise ValueError(f"Unknown dc kind {kind!r}")
 
 
+def fused_drift_reference(
+    p: torch.Tensor,
+    d: torch.Tensor,
+    y: torch.Tensor,
+    u: torch.Tensor,
+    kind: str,
+    *,
+    params=(0.0, 0.0),
+    mean_shift: float = 0.0,
+) -> torch.Tensor:
+    """The partial mode's D^T dc (M, J) in plain PyTorch, in the input's dtype."""
+    return d.T @ cost_derivative(kind, p @ u + mean_shift, y[:, None], params)
+
+
+def apply_drift(
+    u: torch.Tensor, drift: torch.Tensor, prior: torch.Tensor, noise: torch.Tensor, eta: float
+) -> torch.Tensor:
+    """U' = U - eta (drift + prior(U)) + sqrt(2 eta) noise, the end of the
+    kernel's update in plain PyTorch, for the data drift D^T dc summed over
+    the data ranks (the matrix prior's product is one torch.matmul)."""
+    prior_drift = prior[:, None] * u if prior.ndim == 1 else prior @ u
+    return u - eta * (drift + prior_drift) + math.sqrt(2.0 * eta) * noise
+
+
 def fused_update_reference(
     p: torch.Tensor,
     d: torch.Tensor,
@@ -130,9 +161,53 @@ def fused_update_reference(
     mean_shift: float = 0.0,
 ) -> torch.Tensor:
     """The kernel's math in plain PyTorch, in the input's dtype."""
-    dc = cost_derivative(kind, p @ u + mean_shift, y[:, None], params)
-    prior_drift = prior[:, None] * u if prior.ndim == 1 else prior @ u
-    return u - eta * (d.T @ dc + prior_drift) + math.sqrt(2.0 * eta) * noise
+    drift = fused_drift_reference(p, d, y, u, kind, params=params, mean_shift=mean_shift)
+    return apply_drift(u, drift, prior, noise, eta)
+
+
+def _launch(p, d, y, u, prior, noise, kind, eta, params, mean_shift):
+    """Launch the kernel on CUDA tensors; ``prior`` None is the partial mode.
+    Returns the (M, J) fp32 output: U', or D^T dc in the partial mode."""
+    if u.device.type != "cuda":
+        raise ValueError(f"fused_update: particles on {u.device}")
+    if p.ndim != 2 or u.ndim != 2 or p.shape[1] != u.shape[0]:
+        raise ValueError(f"fused_update: P {tuple(p.shape)} and U {tuple(u.shape)}")
+    n, m = p.shape
+    j = u.shape[1]
+    partial = prior is None
+    checked = [("D", d, (n, m)), ("y", y, (n,))]
+    if not partial:
+        prior_shape = (m,) if prior.ndim == 1 else (m, m)
+        checked += [("prior", prior, prior_shape), ("noise", noise, (m, j))]
+    for name, t, shape in checked:
+        if t.shape != shape or t.device != u.device:
+            raise ValueError(f"fused_update: {name} of shape {tuple(t.shape)} on {t.device}")
+    if max(n * j, n * m, m * j) >= 2**31:
+        raise ValueError("fused_update: a matrix has 2^31 or more elements")
+    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    # D in place when it or its transpose is contiguous fp32 (k(Z, X).T)
+    d_kmajor = not (d.dtype == torch.float32 and d.T.is_contiguous() and not d.is_contiguous())
+    d32 = f32(d) if d_kmajor else d.T
+    p32, y32, u32 = (f32(t) for t in (p, y, u))
+    # the partial mode reads no prior and no noise: U stands in for both
+    prior32, noise32 = (u32, u32) if partial else (f32(prior), f32(noise))
+    prior_diag = partial or prior.ndim == 1
+    depth = n if prior_diag else -(-n // tc_product.TILE_K) * tc_product.TILE_K + m
+    upd = tc_product.split_k(m, j, depth)  # an arrival counter per tile
+    with torch.cuda.device(u.device):
+        dc = torch.empty((n, j), dtype=torch.float32, device=u.device)
+        out = torch.empty((m, j), dtype=torch.float32, device=u.device)
+        slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=u.device)
+        counters = torch.empty(upd.tiles, dtype=torch.int32, device=u.device)
+        err = build.load("fused_update", _SIGNATURES).plst_fused_update(
+            p32.data_ptr(), d32.data_ptr(), y32.data_ptr(), u32.data_ptr(), prior32.data_ptr(),
+            noise32.data_ptr(), dc.data_ptr(), out.data_ptr(), slabs.data_ptr(),
+            counters.data_ptr(), n, m, j, int(d_kmajor), int(prior_diag), int(partial),
+            DC_KINDS.index(kind), upd.slices, params[0], params[1], float(mean_shift), float(eta),
+            torch.cuda.current_stream().cuda_stream,
+        )
+        build.check(err, "fused_update kernel")
+    return out
 
 
 def fused_update(
@@ -159,41 +234,33 @@ def fused_update(
     if u.device.type == "cpu":
         return fused_update_reference(p, d, y, u, prior, noise, kind, eta=eta, params=params,
                                       mean_shift=mean_shift)
-    if u.device.type != "cuda":
-        raise ValueError(f"fused_update: particles on {u.device}")
-    if p.ndim != 2 or u.ndim != 2 or p.shape[1] != u.shape[0]:
-        raise ValueError(f"fused_update: P {tuple(p.shape)} and U {tuple(u.shape)}")
-    n, m = p.shape
-    j = u.shape[1]
-    prior_shape = (m,) if prior.ndim == 1 else (m, m)
-    for name, t, shape in (("D", d, (n, m)), ("y", y, (n,)), ("prior", prior, prior_shape),
-                           ("noise", noise, (m, j))):
-        if t.shape != shape or t.device != u.device:
-            raise ValueError(f"fused_update: {name} of shape {tuple(t.shape)} on {t.device}")
-    if max(n * j, n * m, m * j) >= 2**31:
-        raise ValueError("fused_update: a matrix has 2^31 or more elements")
-    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    # D in place when it or its transpose is contiguous fp32 (k(Z, X).T)
-    d_kmajor = not (d.dtype == torch.float32 and d.T.is_contiguous() and not d.is_contiguous())
-    d32 = f32(d) if d_kmajor else d.T
-    p32, y32, u32, prior32, noise32 = (f32(t) for t in (p, y, u, prior, noise))
-    depth = n if prior.ndim == 1 else -(-n // tc_product.TILE_K) * tc_product.TILE_K + m
-    upd = tc_product.split_k(m, j, depth)  # an arrival counter per tile
-    with torch.cuda.device(u.device):
-        dc = torch.empty((n, j), dtype=torch.float32, device=u.device)
-        out = torch.empty((m, j), dtype=torch.float32, device=u.device)
-        slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=u.device)
-        counters = torch.empty(upd.tiles, dtype=torch.int32, device=u.device)
-        err = build.load("fused_update", _SIGNATURES).plst_fused_update(
-            p32.data_ptr(), d32.data_ptr(), y32.data_ptr(), u32.data_ptr(), prior32.data_ptr(),
-            noise32.data_ptr(), dc.data_ptr(), out.data_ptr(), slabs.data_ptr(),
-            counters.data_ptr(), n, m, j, int(d_kmajor), int(prior.ndim == 1),
-            DC_KINDS.index(kind), upd.slices, params[0], params[1], float(mean_shift), float(eta),
-            torch.cuda.current_stream().cuda_stream,
-        )
-        build.check(err, "fused_update kernel")
-        fused_update.launches += 1
+    out = _launch(p, d, y, u, prior, noise, kind, eta, params, mean_shift)
+    fused_update.launches += 1
+    return out.to(u.dtype)
+
+
+def fused_drift(
+    p: torch.Tensor,
+    d: torch.Tensor,
+    y: torch.Tensor,
+    u: torch.Tensor,
+    kind: str,
+    *,
+    params=(0.0, 0.0),
+    mean_shift: float = 0.0,
+) -> torch.Tensor:
+    """D^T dc (M, J) in ``u``'s dtype, with dc at F = P U + m0 over the rows
+    of ``p``, ``d`` and ``y`` (a data rank's): the kernel's partial mode on
+    CUDA tensors (fp32), the plain version on CPU tensors."""
+    if kind not in DC_KINDS:
+        raise ValueError(f"fused_drift: unknown dc kind {kind!r}")
+    params = tuple(float(v) for v in params)
+    if u.device.type == "cpu":
+        return fused_drift_reference(p, d, y, u, kind, params=params, mean_shift=mean_shift)
+    out = _launch(p, d, y, u, None, None, kind, 0.0, params, mean_shift)
+    fused_drift.launches += 1
     return out.to(u.dtype)
 
 
 fused_update.launches = 0
+fused_drift.launches = 0

@@ -35,6 +35,14 @@ slices of N, whose partial tiles go to a slab of scratch.
 cast at entry and exit, and runs :func:`general_train_reference` only for
 tensors that lie on the CPU. ``general_train.launches`` counts whole runs
 (one C call queues the 3 T + 2 kernel launches of a run).
+
+A ``shard`` (:class:`~projected_langevin_sampling_torch.utils.columns.ColumnShard`)
+runs columns j0 .. j0 + J_loc of a J-column run: the kernel counts its
+Philox groups on the run's column (j0 a multiple of 4) and the plain loop
+keeps those columns of the whole draw, so a shard draws exactly the
+unsharded run's normals of its columns; its energies are its share, sums
+over J. The kernel's own stopper sees only the shard's share, so a shard runs
+with infinite patience and ``parallel/auto.py`` takes the run's stop.
 """
 
 from __future__ import annotations
@@ -46,6 +54,11 @@ import numpy as np
 import torch
 
 from projected_langevin_sampling_torch.ops.cuda import build, tc_product
+from projected_langevin_sampling_torch.utils.columns import (
+    ColumnShard,
+    column_mean,
+    column_normals,
+)
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
     run_with_stopper,
@@ -90,7 +103,7 @@ OPS_PER_ELEMENT = {
 # with half a Box-Muller pair (as B1's 25 + 6)
 OPS_PER_UPDATE_ELEMENT = 8 + 4 + 31
 
-_SIGNATURES = {"plst_general_train": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
+_SIGNATURES = {"plst_general_train": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
     ctypes.c_void_p,
 ]}
@@ -194,12 +207,14 @@ def general_train_reference(
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     product=torch.matmul,
+    shard: ColumnShard | None = None,
 ):
     """The plain PyTorch loop over T doing the kernel's math in the input's
     dtype, with the early-stopper carry.
 
     Noise per step: zeros with ``zero_noise``; else ``noise[t]`` for injected
-    standard normals ``noise`` (T, M_k, J); else normals from ``generator``.
+    standard normals ``noise`` (T, M_k, J) (a shard's own columns); else
+    normals from ``generator`` (a shard's columns of the whole draw).
     ``product`` computes P U and P^T dc (the tests put the emulation of the
     kernel's 3xTF32 product there). Returns ``(u, energies, recorded,
     steps_run)``."""
@@ -226,13 +241,13 @@ def general_train_reference(
             u_new = dec * (u - eta * (ds * g))
             scale = nscale
         if not zero_noise:
-            eps = noise[t] if noise is not None else torch.randn(
-                u.shape, generator=generator, dtype=dtype, device=device
+            eps = noise[t] if noise is not None else column_normals(
+                u.shape, generator, dtype, device, shard
             )
             u_new = u_new + scale * eps
         cost_j, dc_new = sweep(u_new)
         prior_j = 0.5 * torch.sum(torch.square(u_new) * inv_lam, dim=0)
-        return (u_new, dc_new), torch.mean(cost_j + prior_j)
+        return (u_new, dc_new), column_mean(cost_j + prior_j, shard)
 
     (u, _), energies, recorded, steps_run = run_with_stopper(
         step, (u0, sweep(u0)[1]), num_steps, eta, patience, dtype, device
@@ -258,6 +273,7 @@ def general_train(
     zero_noise: bool = False,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    shard: ColumnShard | None = None,
 ):
     """Run ``num_steps`` general-cost steps; returns ``(u, energies, recorded,
     steps_run)`` in ``u0``'s dtype.
@@ -265,7 +281,8 @@ def general_train(
     On CUDA tensors the kernel runs in fp32 with Philox noise keyed on
     ``seed``; injected ``noise`` is refused there and ``generator`` serves only
     the plain loop. ``zero_noise`` switches the noise off for exact comparison
-    with the plain version. On CPU tensors the plain loop runs."""
+    with the plain version. ``shard``: the columns of a J-column run these
+    particles are (module note). On CPU tensors the plain loop runs."""
     if kind not in COST_KINDS:
         raise ValueError(f"general_train: unknown cost kind {kind!r}")
     if discretisation not in DISCRETISATIONS:
@@ -275,7 +292,7 @@ def general_train(
         return general_train_reference(
             p, u0, y, eigenvalues, kind, eta=eta, patience=patience, num_steps=num_steps,
             params=params, mean_shift=mean_shift, aux=aux, discretisation=discretisation,
-            zero_noise=zero_noise, noise=noise, generator=generator,
+            zero_noise=zero_noise, noise=noise, generator=generator, shard=shard,
         )
     if u0.device.type != "cuda":
         raise ValueError(f"general_train: particles on {u0.device}")
@@ -294,6 +311,9 @@ def general_train(
         raise ValueError(f"general_train: seed {seed} outside [0, 2^64)")
     if max(n * j, m_k * j, n * m_k) >= 2**31:
         raise ValueError("general_train: a matrix has 2^31 or more elements")
+    j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
+    if j0 % 4:
+        raise ValueError(f"general_train: a shard starts at column {j0}, not a multiple of 4")
     dtype, device = u0.dtype, u0.device
     if num_steps == 0:
         empty = torch.zeros(0, dtype=dtype, device=device)
@@ -324,7 +344,7 @@ def general_train(
             *(c.data_ptr() for c in row_constants),
             u_a.data_ptr(), u_b.data_ptr(), dc.data_ptr(), cost_partials.data_ptr(),
             prior_partials.data_ptr(), slabs.data_ptr(), counters.data_ptr(),
-            energies.data_ptr(), state.data_ptr(), n, m_k, j, int(num_steps),
+            energies.data_ptr(), state.data_ptr(), n, m_k, j, j0, j_total, int(num_steps),
             COST_KINDS.index(kind), DISCRETISATIONS.index(discretisation), upd.slices,
             host_params.data_ptr(), float(eta), float(patience), int(seed), int(zero_noise),
             torch.cuda.current_stream().cuda_stream,

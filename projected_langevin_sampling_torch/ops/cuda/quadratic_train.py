@@ -27,6 +27,12 @@ its items through the product's ring of asynchronous copies.
 :func:`quadratic_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`quadratic_train_reference` only for
 tensors that lie on the CPU. ``quadratic_train.launches`` counts whole runs.
+
+A ``shard`` (:class:`~projected_langevin_sampling_torch.utils.columns.ColumnShard`)
+runs columns j0 .. j0 + J_loc of a J-column run, as B3's does
+(``ops/cuda/general_train.py``): Philox groups counted on the run's column
+(j0 a multiple of 4), energies the shard's share (the constant's too), run
+with infinite patience and the run's stop taken by ``parallel/auto.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,12 @@ import math
 import torch
 
 from projected_langevin_sampling_torch.ops.cuda import build, tc_product
+from projected_langevin_sampling_torch.utils.columns import (
+    ColumnShard,
+    column_mean,
+    column_normals,
+    constant_share,
+)
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
     run_with_stopper,
@@ -48,7 +60,7 @@ from projected_langevin_sampling_torch.utils.early_stopper import (
 OPS_PER_ELEMENT_STEP = 31 + 4 + 6
 
 _SIGNATURES = {
-    "plst_quadratic_train": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+    "plst_quadratic_train": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong, ctypes.c_int,
         ctypes.c_void_p,
     ],
@@ -108,14 +120,16 @@ def quadratic_train_reference(
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     product=torch.matmul,
+    shard: ColumnShard | None = None,
 ):
     """The plain PyTorch loop over T doing the kernel's math in the input's
     dtype, with the early-stopper carry.
 
     Noise per step: zeros with ``zero_noise``; else ``S @ noise[t]`` for
     injected standard normals ``noise`` (T, M, J), the z of the basis's
-    update noise S z (S = I when ``noise_factor`` is None); else normals from
-    ``generator``. ``product`` computes A U, S z and E U (the tests put the
+    update noise S z (S = I when ``noise_factor`` is None; a shard's own
+    columns); else normals from ``generator`` (a shard's columns of the
+    whole draw). ``product`` computes A U, S z and E U (the tests put the
     emulation of the kernel's 3xTF32 product there). Returns ``(u, energies,
     recorded, steps_run)``."""
     dtype, device = u0.dtype, u0.device
@@ -129,14 +143,14 @@ def quadratic_train_reference(
         drift = (v if shared else product(a, u)) - b_col
         u_new = u - eta * drift
         if not zero_noise:
-            z = noise[t] if noise is not None else torch.randn(
-                u.shape, generator=generator, dtype=dtype, device=device
+            z = noise[t] if noise is not None else column_normals(
+                u.shape, generator, dtype, device, shard
             )
             eps = z if noise_factor is None else product(noise_factor, z)
             u_new = u_new + root2eta * eps
         v_new = product(mat, u_new)
         energy_j = 0.5 * torch.sum(u_new * v_new, dim=0) - energy_bias @ u_new + e_const
-        return (u_new, v_new), torch.mean(energy_j)
+        return (u_new, v_new), column_mean(energy_j, shard)
 
     v0 = product(a, u0) if shared else torch.zeros_like(u0)
     (u, _), energies, recorded, steps_run = run_with_stopper(
@@ -162,6 +176,7 @@ def quadratic_train(
     zero_noise: bool = False,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    shard: ColumnShard | None = None,
 ):
     """Run ``num_steps`` quadratic-tier steps; returns ``(u, energies,
     recorded, steps_run)`` in ``u0``'s dtype.
@@ -169,12 +184,13 @@ def quadratic_train(
     On CUDA tensors the kernel runs in fp32 with Philox noise keyed on
     ``seed``; injected ``noise`` is refused there and ``generator`` serves only
     the plain loop. ``zero_noise`` switches the noise off for exact comparison
-    with the plain version. On CPU tensors the plain loop runs."""
+    with the plain version. ``shard``: the columns of a J-column run these
+    particles are (module note). On CPU tensors the plain loop runs."""
     if u0.device.type == "cpu":
         return quadratic_train_reference(
             a, b, energy_matrix, energy_bias, noise_factor, u0, eta=eta, patience=patience,
             e_const=e_const, num_steps=num_steps, shared=shared, zero_noise=zero_noise,
-            noise=noise, generator=generator,
+            noise=noise, generator=generator, shard=shard,
         )
     if u0.device.type != "cuda":
         raise ValueError(f"quadratic_train: particles on {u0.device}")
@@ -196,6 +212,9 @@ def quadratic_train(
         raise ValueError(f"quadratic_train: seed {seed} outside [0, 2^64)")
     if m * j >= 2**31:
         raise ValueError("quadratic_train: the particles have 2^31 or more elements")
+    j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
+    if j0 % 4:
+        raise ValueError(f"quadratic_train: a shard starts at column {j0}, not a multiple of 4")
     dtype, device = u0.dtype, u0.device
     if num_steps == 0:
         empty = torch.zeros(0, dtype=dtype, device=device)
@@ -218,8 +237,9 @@ def quadratic_train(
         err = lib.plst_quadratic_train(
             a32.data_ptr(), e32.data_ptr(), s32.data_ptr(), b32.data_ptr(), eb32.data_ptr(),
             u_a.data_ptr(), u_b.data_ptr(), eps.data_ptr(), slabs.data_ptr(),
-            arrived.data_ptr(), partials.data_ptr(), energies.data_ptr(), m, j, int(num_steps),
-            int(shared), items.slices, float(eta), float(patience), float(e_const), int(seed),
+            arrived.data_ptr(), partials.data_ptr(), energies.data_ptr(), m, j, j0, j_total,
+            int(num_steps), int(shared), items.slices, float(eta), float(patience),
+            float(constant_share(e_const, j, shard)), int(seed),
             int(zero_noise), torch.cuda.current_stream().cuda_stream,
         )
         build.check(err, "quadratic_train kernel")

@@ -28,6 +28,13 @@ there is no resident-size limit: nothing needs the whole matrix in one place.
 :func:`spectral_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit as on the TPU, and runs :func:`spectral_train_reference`
 only for tensors that lie on the CPU.
+
+A ``shard`` (:class:`~projected_langevin_sampling_torch.utils.columns.ColumnShard`)
+runs columns j0 .. j0 + J_loc of a J-column run: the kernel counts its
+Philox groups on the run's flat index (row J + j0 + column), so a shard draws
+exactly those columns of the unsharded run's normals (J_loc, j0 and J
+multiples of 4), and the plain loop keeps those columns of the whole draw.
+Its energies are the shard's share of the run's (``utils/columns.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +46,12 @@ import numpy as np
 import torch
 
 from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.utils.columns import (
+    ColumnShard,
+    column_mean,
+    column_normals,
+    constant_share,
+)
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
     run_with_stopper,
@@ -58,8 +71,9 @@ STEPS_PER_LAUNCH = 65536
 OPS_PER_ELEMENT_STEP = 25 + 6 + 4 + 6
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
+    ctypes.c_void_p,
 ]
 
 # Philox4x32-10 as csrc/philox.cuh has it (Random123's multipliers and Weyl
@@ -79,7 +93,8 @@ def num_blocks(total: int) -> int:
 def step_energies(partials: torch.Tensor, n: int, j: int, e_const: float) -> torch.Tensor:
     """The energies of a launch's first ``n`` steps from its (blocks, steps)
     partial buffer: the blocks' partials of a step summed, over J, plus the
-    constant."""
+    constant (for a column shard, J is the run's and ``e_const`` the
+    shard's share of the constant)."""
     return partials[:, :n].sum(dim=0) / j + e_const
 
 
@@ -131,13 +146,18 @@ def mirror_normals(seed: int, groups, step: int) -> np.ndarray:
     return z
 
 
-def mirror_noise(seed: int, m: int, j: int, num_steps: int) -> np.ndarray:
+def mirror_noise(seed: int, m: int, j: int, num_steps: int, j0: int = 0,
+                 j_total: int | None = None) -> np.ndarray:
     """The kernel's draws of a whole run, in fp64, (num_steps, m, j): element
-    4 g + k of each step's flattened (m, j) draws entry k of group g. Given to
-    :func:`spectral_train_reference` as ``noise`` with ``q_in`` the identity,
-    it replays a run of the kernel on ``seed`` with exact normals."""
-    groups = np.arange(-(-m * j // 4))
-    return np.stack([mirror_normals(seed, groups, t).reshape(-1)[: m * j].reshape(m, j)
+    4 g + k of each step's flattened (m, j_total) draws entry k of group g,
+    and the run's columns j0 .. j0 + j are returned (all of them by
+    default). Given to :func:`spectral_train_reference` as ``noise`` with
+    ``q_in`` the identity, it replays a run of the kernel on ``seed`` with
+    exact normals."""
+    j_total = j if j_total is None else j_total
+    flat = (np.arange(m)[:, None] * j_total + j0 + np.arange(j)[None, :]).reshape(-1)
+    groups, inverse = np.unique(flat // 4, return_inverse=True)
+    return np.stack([mirror_normals(seed, groups, t)[inverse, flat % 4].reshape(m, j)
                      for t in range(num_steps)])
 
 
@@ -157,13 +177,15 @@ def spectral_train_reference(
     noise: torch.Tensor | None = None,
     q_in: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    shard: ColumnShard | None = None,
 ):
     """The plain PyTorch loop over T doing the kernel's math in the input's
     dtype, with the early-stopper carry.
 
     Noise per step: zeros with ``zero_noise``; else ``q_in^T @ noise[t]`` for
-    injected noise ``noise`` (T, M, J) given in U coordinates; else standard
-    normals from ``generator``. Returns ``(w, energies, recorded, steps_run)``.
+    injected noise ``noise`` (T, M, J) given in U coordinates (a shard's own
+    columns); else standard normals from ``generator`` (a shard's columns of
+    the whole draw). Returns ``(w, energies, recorded, steps_run)``.
     """
     dtype, device = w0.dtype, w0.device
     decay_c, shift_c, sigma_c = decay[:, None], shift[:, None], energy_sigma[:, None]
@@ -179,10 +201,10 @@ def spectral_train_reference(
         elif noise is not None:
             eps = noise[t]
         else:
-            eps = torch.randn(w.shape, generator=generator, dtype=dtype, device=device)
+            eps = column_normals(w.shape, generator, dtype, device, shard)
         w_new = decay_c * w + shift_c + noise_scale * eps
         energy_j = 0.5 * torch.sum(sigma_c * torch.square(w_new), dim=0) - b_rot @ w_new + e_const
-        return (w_new,), torch.mean(energy_j)
+        return (w_new,), column_mean(energy_j, shard)
 
     (w,), energies, recorded, steps_run = run_with_stopper(
         step, (w0,), num_steps, eta, patience, dtype, device
@@ -190,27 +212,31 @@ def spectral_train_reference(
     return w, energies, recorded, steps_run
 
 
-def _launch(w0, w_out, coeffs, partials, j, step0, num_steps, noise_scale, seed, zero_noise):
+def _launch(w0, w_out, coeffs, partials, j, j0, j_total, step0, num_steps, noise_scale, seed,
+            zero_noise):
     lib = build.load("spectral_train")
     fn = lib.plst_spectral_train
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(
         w0.data_ptr(), w_out.data_ptr(), *(c.data_ptr() for c in coeffs),
-        partials.data_ptr(), partials.shape[1], w0.numel(), j, partials.shape[0], step0,
-        num_steps, float(noise_scale), seed, int(zero_noise), stream,
+        partials.data_ptr(), partials.shape[1], w0.numel(), j, j0, j_total, partials.shape[0],
+        step0, num_steps, float(noise_scale), seed, int(zero_noise), stream,
     )
     build.check(err, "spectral_train kernel")
     spectral_train.launches += 1
 
 
 def _run_kernel(w0, coeffs, j, num_steps, noise_scale, seed, zero_noise, e_const,
-                step_size=None, patience=None):
+                step_size=None, patience=None, shard=None):
     """Run ``num_steps`` steps in launches of at most STEPS_PER_LAUNCH.
 
     Returns ``(w, energies)``. With ``step_size``/``patience`` it stops
     launching once the replayed stopper has fired (the trace beyond is not
-    needed; the caller reruns to the stop)."""
+    needed; the caller reruns to the stop). A ``shard``'s energies are its
+    share."""
+    j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
+    e_const = constant_share(e_const, j, shard)
     partials = torch.empty(
         (num_blocks(w0.numel()), min(num_steps, STEPS_PER_LAUNCH)), dtype=torch.float32,
         device=w0.device,
@@ -220,8 +246,9 @@ def _run_kernel(w0, coeffs, j, num_steps, noise_scale, seed, zero_noise, e_const
     for step0 in range(0, num_steps, STEPS_PER_LAUNCH):
         n = min(STEPS_PER_LAUNCH, num_steps - step0)
         w_next = torch.empty_like(w0)
-        _launch(w, w_next, coeffs, partials, j, step0, n, noise_scale, seed, zero_noise)
-        energies[step0:step0 + n] = step_energies(partials, n, j, e_const)
+        _launch(w, w_next, coeffs, partials, j, j0, j_total, step0, n, noise_scale, seed,
+                zero_noise)
+        energies[step0:step0 + n] = step_energies(partials, n, j_total, e_const)
         w = w_next
         if step_size is not None and step0 + n < num_steps:
             _, steps_run = replay_early_stopper(energies[: step0 + n], step_size, patience)
@@ -247,6 +274,7 @@ def spectral_train(
     noise: torch.Tensor | None = None,
     q_in: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    shard: ColumnShard | None = None,
 ):
     """Run ``num_steps`` spectral steps; returns ``(w, energies, recorded,
     steps_run)`` in ``w0``'s dtype.
@@ -254,13 +282,14 @@ def spectral_train(
     On CUDA tensors the kernel runs in fp32 with Philox noise keyed on
     ``seed``; injected ``noise`` is refused there, and ``q_in`` and
     ``generator`` serve only the plain loop. ``zero_noise`` switches the noise
-    off for exact comparison with the plain version. On CPU tensors the
+    off for exact comparison with the plain version. ``shard``: the columns
+    of a J-column run these particles are (module note). On CPU tensors the
     plain loop runs."""
     if w0.device.type == "cpu":
         return spectral_train_reference(
             w0, decay, shift, energy_sigma, b_rot, eta=eta, patience=patience,
             e_const=e_const, num_steps=num_steps, noise_scale=noise_scale,
-            zero_noise=zero_noise, noise=noise, q_in=q_in, generator=generator,
+            zero_noise=zero_noise, noise=noise, q_in=q_in, generator=generator, shard=shard,
         )
     if w0.device.type != "cuda":
         raise ValueError(f"spectral_train: particles on {w0.device}")
@@ -270,6 +299,13 @@ def spectral_train(
     if w0.ndim != 2:
         raise ValueError(f"spectral_train: particles of shape {tuple(w0.shape)}")
     m, j = w0.shape
+    if shard is not None and (shard.j0 != 0 or shard.j_total != j) and (
+        j % 4 or shard.j0 % 4 or shard.j_total % 4
+    ):
+        raise ValueError(
+            f"spectral_train: a shard of {j} columns at {shard.j0} of {shard.j_total} draws "
+            "whole Philox groups of four only if all three are multiples of 4"
+        )
     coeffs = []
     for name, c in (("decay", decay), ("shift", shift), ("sigma", energy_sigma), ("b", b_rot)):
         if c.shape != (m,) or c.device != w0.device:
@@ -286,7 +322,7 @@ def spectral_train(
     with torch.cuda.device(w0.device):
         w, energies = _run_kernel(
             w32, coeffs, j, num_steps, noise_scale, int(seed), zero_noise, e_const,
-            step_size=eta, patience=patience,
+            step_size=eta, patience=patience, shard=shard,
         )
         energies = energies.to(dtype)
         recorded, steps_run = replay_early_stopper(energies, eta, patience)
@@ -294,7 +330,8 @@ def spectral_train(
         if stop < num_steps:
             # the stop fell before the last step: rerun steps 0..stop from W0
             # on the same Philox counters; the stop step's update is applied
-            w, _ = _run_kernel(w32, coeffs, j, stop, noise_scale, int(seed), zero_noise, e_const)
+            w, _ = _run_kernel(w32, coeffs, j, stop, noise_scale, int(seed), zero_noise, e_const,
+                               shard=shard)
             energies[stop:] = float("nan")
     return w.to(dtype), energies, recorded, steps_run
 

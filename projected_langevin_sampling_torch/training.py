@@ -75,6 +75,7 @@ from projected_langevin_sampling_torch.ops.cuda.general_train import (
 )
 from projected_langevin_sampling_torch.ops.cuda.quadratic_train import quadratic_train
 from projected_langevin_sampling_torch.ops.cuda.spectral_train import spectral_train
+from projected_langevin_sampling_torch.utils.columns import ColumnShard, column_mean, column_normals
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
     run_with_stopper,
@@ -413,9 +414,15 @@ class TrainResult(NamedTuple):
     steps_run: torch.Tensor  # scalar int, steps executed before stopping
 
 
-def _update_noise(basis, noise, generator, number_of_particles: int):
+def _update_noise(basis, noise, generator, number_of_particles: int,
+                  shard: ColumnShard | None = None):
     """Step t's update noise, the basis's S z (z itself on the ONB): z is
-    ``noise[t]`` when injected, else drawn from ``generator``."""
+    ``noise[t]`` when injected, else drawn from ``generator`` (a shard's
+    columns of the whole run's draw)."""
+    if noise is None and shard is not None:
+        shape = (basis.approximation_dimension, number_of_particles)
+        return lambda t: basis.sample_update_noise(number_of_particles, normals=column_normals(
+            shape, generator, basis.dtype, basis.device, shard))
     return lambda t: basis.sample_update_noise(
         number_of_particles, generator, normals=None if noise is None else noise[t]
     )
@@ -433,6 +440,7 @@ def _train_pls_loop(
     generator: GeneratorLike = None,
     noise: torch.Tensor | None = None,
     discretisation: str = "euler",
+    shard: ColumnShard | None = None,
 ) -> TrainResult:
     """Run one tier for ``number_of_epochs`` steps.
 
@@ -440,7 +448,10 @@ def _train_pls_loop(
     draws of the basis's update noise (the noise itself on the ONB, S z on
     the IPB): the parity hook, CPU tensors only on the fused tiers; the
     spectral tier rotates it into its eigenbasis. Otherwise noise comes from
-    ``generator``."""
+    ``generator``. ``shard``: the particles are columns j0 .. j0 + J_loc of a
+    J-column run (``parallel/auto.py``): each tier draws those columns of
+    the whole run's noise, and its energies are the shard's share of the
+    run's (``utils/columns.py``), so it runs with infinite patience."""
     _require_known_basis(basis)
     if discretisation not in DISCRETISATIONS:
         raise ValueError(f"Unknown discretisation {discretisation!r}")
@@ -487,6 +498,7 @@ def _train_pls_loop(
             noise=noise,
             q_in=q_noise,
             generator=generator,
+            shard=shard,
         )
         return TrainResult(q_out @ w, energies, recorded, steps_run)
     if tier == "general_fused":
@@ -507,6 +519,7 @@ def _train_pls_loop(
             seed=seed,
             noise=noise,
             generator=generator,
+            shard=shard,
         ))
     if tier == "quadratic_fused":
         a_mat, b_vec, e_mat, e_bias, e_const, shared = _quadratic_system(basis, cost)
@@ -525,9 +538,10 @@ def _train_pls_loop(
             seed=seed,
             noise=noise,
             generator=generator,
+            shard=shard,
         ))
 
-    draw = _update_noise(basis, noise, generator, particles.shape[1])
+    draw = _update_noise(basis, noise, generator, particles.shape[1], shard)
     if tier == "quadratic":
         a_mat, b_vec, e_mat, e_bias, e_const, shared = _quadratic_system(basis, cost)
 
@@ -539,7 +553,7 @@ def _train_pls_loop(
             u_new = u - eta * drift + root2eta * draw(t)
             v_new = (a_mat if shared else e_mat) @ u_new
             energy_j = 0.5 * torch.sum(u_new * v_new, dim=0) - e_bias @ u_new + e_const
-            return (u_new, v_new), torch.mean(energy_j)
+            return (u_new, v_new), column_mean(energy_j, shard)
 
         state0 = (particles, a_mat @ particles if shared else torch.zeros_like(particles))
     elif tier == "off":
@@ -557,8 +571,8 @@ def _train_pls_loop(
             u, pred = state
             u_new = update(u, cost.calculate_cost_derivative(pred), t)
             pred_new = basis.calculate_untransformed_train_prediction_samples(u_new)
-            energy = basis.calculate_energy_potential(u_new, cost.calculate_cost(pred_new))
-            return (u_new, pred_new), energy
+            energy_j = basis.calculate_particle_energies(u_new, cost.calculate_cost(pred_new))
+            return (u_new, pred_new), column_mean(energy_j, shard)
 
         state0 = (particles, basis.calculate_untransformed_train_prediction_samples(particles))
     else:
@@ -589,11 +603,16 @@ def _split_update(basis, eta: float, discretisation: str, draw):
 
 
 def _train_pls_chunked(*args, **kwargs):
-    """The JAX package's runner of very long runs in bounded programs. Here
-    :func:`train_pls` runs any length as one loop, and the spectral kernel
-    launches in pieces itself."""
+    """The JAX package's runner of very long runs in bounded device programs
+    (its ``training.py:1030``), which nothing here needs: an eager loop is no
+    program, :func:`run_with_stopper` looks at the stop flag every 256 steps
+    and leaves the loop once stopped, and the spectral kernel already runs
+    in pieces of at most ``STEPS_PER_LAUNCH`` steps. A deliberate deviation;
+    neither :func:`train_pls` nor ``parallel.parallel_train_pls`` calls it."""
     raise NotImplementedError(
-        "_train_pls_chunked comes with slice 5 of the port (scale-out and harness)"
+        "_train_pls_chunked is not ported: train_pls and parallel_train_pls run any length as "
+        "eager loops that check the early stop every 256 steps (utils/early_stopper.py), and the "
+        "spectral kernel runs in pieces itself; that is what the chunked runner bought on the TPU"
     )
 
 

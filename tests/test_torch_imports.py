@@ -12,9 +12,13 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "projected_langevin_sampling_tpu"
 FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "examples" / "readme_demo_torch.py",
+    ROOT / "examples" / "classification_demo_torch.py",
+    ROOT / "tests" / "torch_parallel_worker.py",
     ROOT / "scripts" / "b1_b2_breakdown.py",
     ROOT / "scripts" / "b3_b5_breakdown.py",
     ROOT / "scripts" / "mma_sync_ceiling.py",
+    ROOT / "scripts" / "kernel_outputs.py",
+    ROOT / "scripts" / "scale_out_cards.py",
 ]
 
 
@@ -53,5 +57,7 @@ def test_port_has_the_slice_modules():
                    "models/gaussian_process/training.py", "models/temper/gp.py",
                    "models/temper/pls_classification.py", "models/conformalise/base.py",
                    "models/conformalise/gp.py", "models/conformalise/pls.py",
-                   "models/custom_types.py"):
+                   "models/custom_types.py", "parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/sharded.py", "parallel/auto.py", "utils/backend.py",
+                   "utils/columns.py"):
         assert f"projected_langevin_sampling_torch/{module}" in names

@@ -95,5 +95,5 @@ def test_tier_resolution():
     _, _, ibasis_b, bernoulli, _ = ipb_model("bernoulli")
     with pytest.raises(ValueError, match="GaussianCost"):
         ttrain.resolve_fast_path(ibasis_b, bernoulli, "quadratic_fused")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         ttrain._train_pls_chunked()
