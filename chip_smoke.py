@@ -33,7 +33,13 @@ each run with the launch counters set to 0 just before it and read just after:
   (bit for bit ``train_pls``, also at a patience that stops mid-run), B1,
   B3 and B4 on two column shards against the whole run, the mesh-sharded
   chunked predict against the single-device one, and the WDBC
-  classification demo twin on the card.
+  classification demo twin on the card;
+- slice 6 (phase 13), the UCI harness (``experiments_torch``): the
+  regression main on kin8nm (8192 rows) and the classification main on
+  rice (3810 rows), synthetic data at the real row counts, the README's
+  headline configs cut in depth only, fp64: all 12 (and 2) models' metric
+  files, the conformal test coverage, pls-onb's test MSE and accuracy, and
+  B1 and B2 (with its backward) launched inside the mains.
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
 tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
@@ -371,6 +377,26 @@ def _spectral_coeffs(m, eta, rising=False, seed=0):
     return decay, eta * b, sigma, b
 
 
+def hold_spectral_zero_noise(spec, w0, num_steps, label, eta=0.01):
+    """B1 without noise against the plain loop, both fp32, from ``w0`` for
+    ``num_steps`` steps on the synthetic coefficients of its row count:
+    W within rtol 1e-5, atol 1e-6 and the energies within rtol 1e-4 (the
+    same update and sums in another order), every step run and recorded."""
+    decay, shift, sigma, b = _spectral_coeffs(w0.shape[0], eta)
+    kw = dict(eta=eta, patience=math.inf, e_const=12.5, num_steps=num_steps,
+              noise_scale=math.sqrt(2 * eta), zero_noise=True)
+    w_k, e_k, rec_k, steps_k = spec.spectral_train(w0, decay, shift, sigma, b, **kw)
+    w_p, e_p, rec_p, steps_p = spec.spectral_train_reference(w0, decay, shift, sigma, b, **kw)
+    torch.cuda.synchronize()
+    err_w = float((w_k - w_p).abs().max())
+    err_e = float(((e_k - e_p).abs() / e_p.abs()).max())
+    log(f"  {label}: max|dW| = {err_w:.3e}, max rel dE = {err_e:.3e}")
+    require(torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6), f"{label}: spectral W disagrees")
+    require(torch.allclose(e_k, e_p, rtol=1e-4), f"{label}: spectral energies disagree")
+    require(int(steps_k) == int(steps_p) == num_steps and bool(rec_k.all()),
+            f"{label}: spectral steps")
+
+
 def phase_spectral(spec, b1_mixes):
     eta, m, j = 0.01, M, J
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -378,18 +404,7 @@ def phase_spectral(spec, b1_mixes):
     res = {}
 
     # (a) zero noise against the plain loop
-    decay, shift, sigma, b = _spectral_coeffs(m, eta)
-    kw = dict(eta=eta, patience=math.inf, e_const=12.5, num_steps=2000,
-              noise_scale=math.sqrt(2 * eta), zero_noise=True)
-    w_k, e_k, rec_k, steps_k = spec.spectral_train(w0, decay, shift, sigma, b, **kw)
-    w_p, e_p, rec_p, steps_p = spec.spectral_train_reference(w0, decay, shift, sigma, b, **kw)
-    torch.cuda.synchronize()
-    err_w = float((w_k - w_p).abs().max())
-    err_e = float(((e_k - e_p).abs() / e_p.abs()).max())
-    log(f"  B1 (a) zero noise T=2000: max|dW| = {err_w:.3e}, max rel dE = {err_e:.3e}")
-    require(torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6), "spectral W disagrees")
-    require(torch.allclose(e_k, e_p, rtol=1e-4), "spectral energies disagree")
-    require(int(steps_k) == int(steps_p) == 2000 and bool(rec_k.all()), "spectral steps")
+    hold_spectral_zero_noise(spec, w0, 2000, "B1 (a) zero noise T=2000")
 
     # (b) rising energy: the stop is fixed by patience / eta
     decay, shift, sigma, b = _spectral_coeffs(m, eta, rising=True)
@@ -523,11 +538,14 @@ def phase_spectral(spec, b1_mixes):
     return res
 
 
-def phase_spectral_noisy(spec, w0, steps=64, seed=21, eta=1e-4):
+def phase_spectral_noisy(spec, w0, steps=64, seed=21, eta=1e-4, coeffs=None, noise_scale=None,
+                         label="B1 (d) noisy"):
     """(d) B1 as the main path runs it, its MUFU normals at the noise scale
     sqrt(2 eta), for ``steps`` steps at the headline M, J, against the plain
     loop in fp64 fed the mirror's exact normals of the same seed
-    (``spectral_train.mirror_noise``); returns max |W - W_plain|.
+    (``spectral_train.mirror_noise``); returns max |W - W_plain|. With
+    ``coeffs`` (decay, shift, sigma, b) and ``noise_scale`` it runs those of
+    a main path's call, ``w0`` that call's particles, both in fp32.
 
     Tolerance, elementwise and step by step: a draw s z is off by at most
     s (r - sqrt(max(r^2 - e, 0)) + (r + sqrt(e)) B1_ANGLE) with e = B1_R2_ABS
@@ -540,8 +558,8 @@ def phase_spectral_noisy(spec, w0, steps=64, seed=21, eta=1e-4):
     (8 a thread, 5 a warp, 8 a block, the blocks' sum) of 2^-24 of the terms'
     sizes, over J."""
     m, j = w0.shape
-    decay, shift, sigma, b = _spectral_coeffs(m, eta)
-    s = math.sqrt(2 * eta)
+    decay, shift, sigma, b = _spectral_coeffs(m, eta) if coeffs is None else coeffs
+    s = math.sqrt(2 * eta) if noise_scale is None else noise_scale
     kw = dict(eta=eta, patience=math.inf, e_const=0.0, num_steps=steps, noise_scale=s)
     w_k, e_k, _, _ = spec.spectral_train(w0, decay, shift, sigma, b, seed=seed, **kw)
     noise = torch.from_numpy(spec.mirror_noise(seed, m, j, steps)).cuda()
@@ -571,12 +589,12 @@ def phase_spectral_noisy(spec, w0, steps=64, seed=21, eta=1e-4):
     de_max += u * e_p.abs()  # the division by J in fp32
     err_w, err_e = (w_k.double() - w_p).abs(), (e_k.double() - e_p).abs()
     ratio_w, ratio_e = float((err_w / dw_max).max()), float((err_e / de_max).max())
-    log(f"  B1 (d) noisy, T={steps} at noise scale {s:.4g}, against the plain loop on the "
-        f"mirror's normals: max|dW| = {float(err_w.max()):.3e} ({ratio_w:.3f} of its bound, "
+    log(f"  {label}, M={m}, J={j}, T={steps} at noise scale {s:.4g}, against the plain loop "
+        f"on the mirror's normals: max|dW| = {float(err_w.max()):.3e} ({ratio_w:.3f} of its bound, "
         f"largest bound {float(dw_max.max()):.3e}), max|dE| = {float(err_e.max()):.3e} "
         f"({ratio_e:.3f} of its bound)")
-    require(ratio_w <= 1, "noisy B1 disagrees with the plain loop on the mirror's normals")
-    require(ratio_e <= 1, "noisy B1's energies disagree with the plain loop's")
+    require(ratio_w <= 1, f"{label}: B1 disagrees with the plain loop on the mirror's normals")
+    require(ratio_e <= 1, f"{label}: B1's energies disagree with the plain loop's")
     return float(err_w.max())
 
 
@@ -1472,12 +1490,13 @@ def b2_backward_check(pt, gram, x_sub, z, x_train):
     return times
 
 
-def b2_backward_keys(launches_11):
-    """B2's backward on the slice 4 path: the passes the fits ran, and the
-    time of one backward at the exact GP's gram (5000 x 5000 same-input,
-    fp64) beside the plain version's autograd."""
+def b2_backward_keys(launches_11, backward_13):
+    """B2's backward on the slice 4 and 6 paths: the passes the fits ran
+    (phases 11 and 13), and the time of one backward at the exact GP's gram
+    (5000 x 5000 same-input, fp64) beside the plain version's autograd."""
     backward_ms, plain_ms = launches_11["backward_ms"][(torch.float64, "same")]
-    return {"backward_launches": launches_11["backward"], "backward_ms": backward_ms,
+    return {"backward_launches": launches_11["backward"] + backward_13,
+            "backward_ms": backward_ms,
             "backward_plain_ms": plain_ms}
 
 
@@ -1924,6 +1943,234 @@ def _scale_out(pt, counters, fused_call, mesh):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: slice 6, the UCI harness's regression and classification mains
+# --------------------------------------------------------------------------
+# the real row counts of kin8nm and rice (experiments/uci/fetch_datasets.py:53, :60),
+# written by the port's synthetic generator
+ROWS13 = {"kin8nm": 8192, "rice": 3810}
+# (source config, its depth cut) of each main: the README's headline configs
+CONFIGS13 = {
+    "regression": ("experiments/uci/regression/config_precond_map.yaml",
+                   "experiments_torch/uci/regression/config_precond_map_short.yaml"),
+    "classification": ("experiments/uci/classification/config_precond_smooth.yaml",
+                       "experiments_torch/uci/classification/config_precond_smooth_short.yaml"),
+}
+DEPTH_KEYS13 = {("kernel", "number_of_epochs"), ("svgp", "number_of_epochs"),
+                ("pls", "maximum_number_of_steps"), ("pls", "number_of_step_searches")}
+# pls-onb's test MSE (regression) and test accuracy (classification), on
+# the normalised targets. A CPU run of the same mains on the same data (the
+# card's machine, --device cpu) gave 0.0457 and 0.7795; the card's first
+# run 0.0330 and 0.7927, with other draws. The MSE limit is twice the CPU
+# run's (an untrained model, as the SVGP at this depth, gives 0.99); the
+# accuracy limit is 0.70, four binomial spreads (0.021 on 381 test points)
+# below the CPU run (the SVGP at this depth: 0.54)
+MSE_MAX13, ACCURACY_MIN13 = 0.09, 0.70
+# pls-student-onb's test MSE without its extra predictive noise. At 8192
+# rows the Student-T fit to the subsample GPs' residuals gives df = 1.53: the
+# extra predictive noise (a t of that df) has no variance, so the reported
+# MSE, a mean over J = 100 particles of one draw, spread from 3.8 to 136.3
+# over 8 draws on the card and 8 on the CPU (the JAX main's key-0 draws:
+# 2.39-2.54) and has no limit here. The trained particles' own prediction
+# has: 0.0642 in a CPU run of the same data and GP fits, 0.0749 on the
+# card; the limit is twice the CPU run's (scripts/uci_pls_seeds.py --draws 8)
+STUDENT_MSE_MAX13 = 0.13
+
+
+def short_config13(main_name):
+    """The depth-cut config of a main, checked to differ from its source in
+    the depth keys only; each cut is printed."""
+    from experiments_torch.config import load_config
+
+    source_path, short_path = CONFIGS13[main_name]
+    source = load_config(os.path.join(ROOT, source_path))
+    short = load_config(os.path.join(ROOT, short_path))
+    require(list(short) == list(source) and all(list(short[s]) == list(source[s])
+                                               for s in source),
+            f"{short_path} has other sections or keys than {source_path}")
+    cuts = {(s, k) for s in source for k in source[s] if short[s][k] != source[s][k]}
+    require(cuts <= DEPTH_KEYS13, f"{short_path} changes more than depth: {sorted(cuts)}")
+    for s, k in sorted(cuts):
+        log(f"  cut: {s}.{k} {source[s][k]} -> {short[s][k]} ({source_path})")
+    return short
+
+
+def read_results13(results, models, expected):
+    """``{(model, file): value}`` of every per-model CSV the main should
+    have written; a missing file raises."""
+    values = {}
+    for model in models:
+        for metric in expected(model):
+            for split in ("train", "test"):
+                path = os.path.join(results, model, f"{metric}_{split}.csv")
+                require(os.path.exists(path), f"the main wrote no {path}")
+                with open(path) as f:
+                    header, row = f.read().splitlines()[:2]
+                require(header == f"dataset,{model}", f"{path}: header {header!r}")
+                cell = row.split(",")[1]
+                values[(model, f"{metric}_{split}")] = math.nan if cell == "" else float(cell)
+    return values
+
+
+def phase_harness(counters):
+    """The two UCI mains of ``experiments_torch`` through ``main(...)``, at
+    the datasets' real row counts, their configs cut in depth only, in fp64
+    on the card: (a) regression on kin8nm, (b) classification on rice."""
+    import tempfile
+
+    from experiments_torch.data import ExperimentData, ProblemType
+    from experiments_torch.metrics import calculate_mse, concatenate_seed
+    from experiments_torch.uci import make_synthetic_datasets
+    from experiments_torch.uci.classification import main as classification
+    from experiments_torch.uci.regression import main as regression
+    from projected_langevin_sampling_torch import training
+    from projected_langevin_sampling_torch.models.pls import PLS
+    from projected_langevin_sampling_torch.ops.cuda import spectral_train as spec
+    from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram
+
+    # every call the mains make to B1's wrapper, its inputs kept to hold B1
+    # at the main path's shapes and on its inputs after (a)
+    b1_calls, b1_wrapper = [], training.spectral_train
+
+    def recording_b1(w0, decay, shift, energy_sigma, b_rot, **kw):
+        b1_calls.append((w0.detach().clone(), tuple(c.detach().clone() for c in (
+            decay, shift, energy_sigma, b_rot)), kw))
+        return b1_wrapper(w0, decay, shift, energy_sigma, b_rot, **kw)
+
+    training.spectral_train = recording_b1
+    # the plain PLS models the regression main scores, for pls-student-onb's
+    # check without its extra predictive noise
+    scored, calculate_metrics = {}, regression.calculate_metrics
+
+    def recording_metrics(model, experiment_data, model_name, **kw):
+        scored[model_name] = (model, kw.get("particles"), experiment_data.test)
+        return calculate_metrics(model=model, experiment_data=experiment_data,
+                                 model_name=model_name, **kw)
+
+    regression.calculate_metrics = recording_metrics
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    try:
+        datasets = os.path.join(tmp, "datasets")
+        for name, rows in ROWS13.items():
+            make_synthetic_datasets.main(rows, datasets, names=[name])
+        sections = {"data": "data_config", "kernel": "kernel_config",
+                    "inducing_points": "inducing_points_config", "pls": "pls_config",
+                    "svgp": "svgp_config", "metrics": "metrics_config"}
+        out = {}
+
+        def run(main_module, main_name, dataset):
+            config = short_config13(main_name)
+            outputs = os.path.join(tmp, main_name)
+            ARDGram.backward_calls = 0
+            _, seconds, launches = run_counted(counters, lambda: main_module.main(
+                data_seed=0, dataset_name=dataset, outputs_path=outputs, datasets_dir=datasets,
+                device="cuda", dtype=torch.float64,
+                **{arg: config[k] for k, arg in sections.items()}))
+            backward = ARDGram.backward_calls
+            concatenate_seed(outputs, 0, [dataset], main_module.MODEL_NAMES, main_module.METRICS)
+            log(f"  {main_name} main on {dataset} ({ROWS13[dataset]} rows): {seconds:.1f} s; "
+                f"launches {launches}, B2 backward passes {backward}")
+            return outputs, launches, backward, config
+
+        # (a) regression: 12 models, on B1 (pls-onb's step-size candidates)
+        # and B2 (the GP fits forward and backward, every build and predict)
+        outputs, launches_a, backward_a, config = run(regression, "regression", "kin8nm")
+        results = os.path.join(outputs, "0", "results", "kin8nm")
+        values = read_results13(
+            results, regression.MODEL_NAMES,
+            lambda m: ("mae", "mse", "nll") + (
+                ("coverage", "median_interval_width", "average_interval_width")
+                if m.endswith("conformalise") else ()))
+        # the conformal NLL scores a Gaussian whose std is half the 2/3
+        # interval; where the conformal correction is negative it can close an
+        # interval to zero width at a point, and the NLL is NaN, in the JAX
+        # harness as here (tests/test_torch_harness_regression.py)
+        for (model, name), value in values.items():
+            require(math.isfinite(value) or (model.endswith("conformalise") and name.startswith(
+                "nll") and math.isnan(value)), f"{model} {name} = {value}")
+        nan_nll = sorted(f"{m} {n}" for (m, n), v in values.items() if math.isnan(v))
+        for table in ("mae", "mse", "nll"):
+            for split in ("train", "test"):
+                require(os.path.exists(os.path.join(outputs, "0", "results",
+                                                    f"{table}_{split}.csv")),
+                        f"no joined {table}_{split}.csv")
+        data = ExperimentData.load(os.path.join(outputs, "0", "data", "kin8nm",
+                                                "experiment_data.pkl"),
+                                   ProblemType.REGRESSION, device="cpu")
+        n_test, n_val = data.test.x.shape[0], data.validation.x.shape[0]
+        coverage = config["metrics"]["coverage"]
+        # phase 11's band at this run's n_test and n_val
+        spread = math.sqrt(coverage * (1 - coverage) * (1 / n_test + 1 / (n_val + 2)))
+        band = (coverage - 4 * spread, coverage + 1 / (n_val + 1) + 4 * spread)
+        coverages = {m: values[(m, "coverage_test")] for m in regression.MODEL_NAMES
+                     if m.endswith("conformalise")}
+        for model, value in coverages.items():
+            require(band[0] <= value <= band[1],
+                    f"{model} test coverage {value} outside [{band[0]:.4f}, {band[1]:.4f}]")
+        mse = values[("pls-onb", "mse_test")]
+        require(mse < MSE_MAX13, f"pls-onb test MSE {mse} >= {MSE_MAX13}")
+        student, particles, test = scored["pls-student-onb"]
+        extra = student.basis.additional_predictive_noise_distribution
+        bare = PLS(basis=student.basis.replace(additional_predictive_noise_distribution=None),
+                   cost=student.cost)
+        student_mse = calculate_mse(bare(x=test.x, particles=particles, generator=0), test.y)
+        require(student_mse < STUDENT_MSE_MAX13,
+                f"pls-student-onb test MSE without its extra noise {student_mse} >= "
+                f"{STUDENT_MSE_MAX13}")
+        require(launches_a["spectral"] >= 1 and launches_a["gram"] >= 1 and backward_a >= 1,
+                f"regression main: B1 {launches_a['spectral']}, B2 {launches_a['gram']}, "
+                f"B2 backward {backward_a}")
+        # B1 held to its plain version at every (M, J, T) the main gave it
+        # (phase 3 (a)'s check and tolerances), and on each call's own
+        # particles, coefficients, noise scale and seed for 64 noisy steps
+        # (phase 3 (d)'s)
+        shapes = {}
+        for w0, _, kw in b1_calls:
+            shapes.setdefault((*w0.shape, kw["num_steps"]), w0)
+        for (m, j, steps), w0 in sorted(shapes.items()):
+            hold_spectral_zero_noise(spec, w0.float(), steps,
+                                     f"B1 zero noise at the main's M={m}, J={j}, T={steps}")
+        for i, (w0, coeffs, kw) in enumerate(b1_calls):
+            phase_spectral_noisy(spec, w0.float(), seed=kw["seed"], eta=kw["eta"],
+                                 coeffs=tuple(c.float() for c in coeffs),
+                                 noise_scale=kw["noise_scale"],
+                                 label=f"B1 noisy on the main's call {i + 1} of {len(b1_calls)}")
+        log(f"  (a) {len(values)} values of 12 models, finite"
+            + (f" but the conformal NLL {nan_nll} (a zero-width 2/3 interval)" if nan_nll else "")
+            + f"; test coverage of the {coverage} intervals (n_test {n_test}, n_val {n_val}, band "
+            f"[{band[0]:.4f}, {band[1]:.4f}]): "
+            + ", ".join(f"{m} {v:.4f}" for m, v in coverages.items())
+            + f"; pls-onb test MSE {mse:.5f} (limit {MSE_MAX13}), svgp "
+            f"{values[('svgp', 'mse_test')]:.5f}; pls-student-onb "
+            f"{values[('pls-student-onb', 'mse_test')]:.5f} (extra predictive noise a t of df "
+            f"{extra.df:.4g}), without its extra noise {student_mse:.5f} (limit "
+            f"{STUDENT_MSE_MAX13})")
+
+        # (b) classification: pls-onb (the residual-smoothed Bernoulli cost on
+        # the off tier) and svgp, on B2
+        outputs, launches_b, backward_b, _ = run(classification, "classification", "rice")
+        values = read_results13(os.path.join(outputs, "0", "results", "rice"),
+                                classification.MODEL_NAMES,
+                                lambda m: ("acc", "auc", "f1", "nll", "mae", "mse"))
+        for (model, name), value in values.items():
+            require(math.isfinite(value), f"{model} {name} = {value}")
+        accuracy = values[("pls-onb", "acc_test")]
+        require(accuracy > max(ACCURACY_MIN13, ACCURACY_MIN10),
+                f"pls-onb test accuracy {accuracy} <= {max(ACCURACY_MIN13, ACCURACY_MIN10)}")
+        require(launches_b["gram"] >= 1, f"classification main: B2 {launches_b['gram']}")
+        log(f"  (b) {len(values)} values, finite; pls-onb test accuracy {accuracy:.4f} (limit "
+            f"{max(ACCURACY_MIN13, ACCURACY_MIN10)}), AUC {values[('pls-onb', 'auc_test')]:.4f}, "
+            f"NLL {values[('pls-onb', 'nll_test')]:.4f}; svgp accuracy "
+            f"{values[('svgp', 'acc_test')]:.4f}, NLL {values[('svgp', 'nll_test')]:.4f}")
+        out = {k: launches_a[k] + launches_b[k] for k in launches_a}
+        out["backward"] = backward_a + backward_b
+        return out
+    finally:
+        training.spectral_train = b1_wrapper
+        regression.calculate_metrics = calculate_metrics
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2016,18 +2263,25 @@ def main() -> int:
     phase(f"phase 12: slice 5, scale-out on a 1 x 1 mesh, N={N}, M={M}, J={J}, fp32",
           phase_scale_out, pt, dict(counters, partial=fused.fused_drift),
           fused_res.pop("fused_call"), smi)
+    launches_13 = phase(f"phase 13: slice 6, the UCI harness's regression main on kin8nm "
+                        f"({ROWS13['kin8nm']} rows) and classification main on rice "
+                        f"({ROWS13['rice']} rows), fp64, depth cut", phase_harness, counters)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/spectral_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/spectral_train.py:120",
-         "launches": launches["spectral"], "library_ms": None, "matched": True, **spec_res},
+         # the slice 1 path's launches and the harness's (phase 13)
+         "launches": launches["spectral"] + launches_13["spectral"], "library_ms": None,
+         "matched": True, **spec_res},
         {"name": "ard_gram", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/gram.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
-         # the slice 1 path's launches and the slice 4 path's (phase 11)
-         "launches": launches["gram"] + launches_11["gram"], "library_ms": None,
-         "matched": True, **gram_res, **b2_backward_keys(launches_11)},
+         # the slice 1 path's launches, the slice 4 path's (phase 11) and the
+         # harness's (phase 13)
+         "launches": launches["gram"] + launches_11["gram"] + launches_13["gram"],
+         "library_ms": None, "matched": True, **gram_res,
+         **b2_backward_keys(launches_11, launches_13["backward"])},
         {"name": "general_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/general_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/general_train.py:307",

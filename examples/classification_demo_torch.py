@@ -13,7 +13,8 @@ scikit-learn bundles for ``load_breast_cancer`` (Wolberg, Street and
 Mangasarian, UCI Machine Learning Repository, CC BY 4.0): a header line, then
 569 rows of 30 features and the target (0 malignant, 1 benign). The split is
 scikit-learn's ``train_test_split(test_size=0.2, random_state=0)``, which the
-JAX demo uses, rebuilt with numpy (:func:`split`), so the demo needs no
+JAX demo uses, as the UCI harness rebuilds it with numpy
+(``experiments_torch.preprocess.train_test_split``), so the demo needs no
 scikit-learn.
 
 Run: python examples/classification_demo_torch.py [--device cpu]   (default: cuda)
@@ -22,7 +23,6 @@ Run: python examples/classification_demo_torch.py [--device cpu]   (default: cud
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import sys
 
@@ -32,6 +32,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import projected_langevin_sampling_torch as pt  # noqa: E402
+from experiments_torch.preprocess import train_test_split  # noqa: E402
 from projected_langevin_sampling_torch.models.link_functions import SigmoidLinkFunction  # noqa: E402
 
 
@@ -44,15 +45,6 @@ def load_wdbc():
     return table[:, :-1], table[:, -1]
 
 
-def split(n: int, test_size: float = 0.2, seed: int = 0):
-    """(train, test) row indices of scikit-learn's ``train_test_split`` with
-    ``random_state=seed``: one permutation of a ``RandomState(seed)``, its
-    first ceil(test_size n) rows for the test."""
-    n_test = math.ceil(test_size * n)
-    permutation = np.random.RandomState(seed).permutation(n)
-    return permutation[n_test:], permutation[:n_test]
-
-
 def main(device=None) -> float:
     """Run the demo on ``device`` (the card unless "cpu"); returns the test
     accuracy."""
@@ -62,9 +54,8 @@ def main(device=None) -> float:
     # 1. real data: Wisconsin Diagnostic Breast Cancer (569 x 30), standardised
     features, target = load_wdbc()
     x_all = (features - features.mean(0)) / features.std(0)
-    train, test = split(len(target))
     x_train, x_test, y_train, y_test = (
-        f64(a) for a in (x_all[train], x_all[test], target[train], target[test]))
+        f64(a) for a in train_test_split(x_all, target, test_size=0.2, random_state=0))
 
     # 2. kernel + greedy inducing points + nystrom-scaled ONB basis
     kernel = pt.ARDKernel(lengthscales=f64(np.full(x_train.shape[1], 3.0)), outputscale=f64(1.0))

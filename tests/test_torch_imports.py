@@ -1,6 +1,8 @@
-"""The PyTorch port, its chip smoke script and the scripts that time it on
-the card import nothing of JAX (jax, flax, optax) and nothing of the JAX
-package; an AST scan of every module."""
+"""The PyTorch port, its experiment harness, its chip smoke script and the
+scripts that time it on the card import nothing of JAX (jax, flax, optax)
+and nothing of the JAX package; the harness also nothing of the JAX
+harness, pandas, scikit-learn, matplotlib or yaml, which the card's machine
+lacks. An AST scan of every module."""
 
 import ast
 import pathlib
@@ -9,7 +11,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "projected_langevin_sampling_tpu"}
-FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + [
+HARNESS_FORBIDDEN = FORBIDDEN | {"experiments", "pandas", "sklearn", "matplotlib", "yaml"}
+HARNESS = sorted((ROOT / "experiments_torch").rglob("*.py"))
+FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + HARNESS + [
     ROOT / "chip_smoke.py",
     ROOT / "examples" / "readme_demo_torch.py",
     ROOT / "examples" / "classification_demo_torch.py",
@@ -19,6 +23,7 @@ FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + [
     ROOT / "scripts" / "mma_sync_ceiling.py",
     ROOT / "scripts" / "kernel_outputs.py",
     ROOT / "scripts" / "scale_out_cards.py",
+    ROOT / "scripts" / "uci_pls_seeds.py",
 ]
 
 
@@ -35,7 +40,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     assert path.exists(), path
-    assert not _imported_roots(path) & FORBIDDEN
+    forbidden = HARNESS_FORBIDDEN if path in HARNESS else FORBIDDEN
+    assert not _imported_roots(path) & forbidden
 
 
 def test_port_has_the_slice_modules():
@@ -61,3 +67,12 @@ def test_port_has_the_slice_modules():
                    "parallel/sharded.py", "parallel/auto.py", "utils/backend.py",
                    "utils/columns.py"):
         assert f"projected_langevin_sampling_torch/{module}" in names
+
+
+def test_harness_has_the_slice_modules():
+    names = {str(p.relative_to(ROOT)) for p in HARNESS}
+    for module in ("utils.py", "config.py", "data.py", "uci/constants.py",
+                   "uci/make_synthetic_datasets.py", "preprocess.py", "constructors.py",
+                   "loaders.py", "metrics.py", "trainers.py", "runners.py",
+                   "uci/regression/main.py", "uci/classification/main.py"):
+        assert f"experiments_torch/{module}" in names
