@@ -2,7 +2,7 @@
 
 Builds the five hand-written CUDA kernels from ``projected_langevin_sampling_torch/csrc``
 with nvcc, holds each against its plain PyTorch version at the main paths'
-shapes, and drives four main paths through the entry points a user calls,
+shapes, and drives the main paths through the entry points a user calls,
 each run with the launch counters set to 0 just before it and read just after:
 
 - slice 1, ONB + Gaussian at N=5000, M=512, J=1000, fp32: build, 20000
@@ -39,7 +39,16 @@ each run with the launch counters set to 0 just before it and read just after:
   rice (3810 rows), synthetic data at the real row counts, the README's
   headline configs cut in depth only, fp64: all 12 (and 2) models' metric
   files, the conformal test coverage, pls-onb's test MSE and accuracy, and
-  B1 and B2 (with its backward) launched inside the mains.
+  B1 and B2 (with its backward) launched inside the mains;
+- slice 7 (phase 14), the curve mains of ``experiments_torch`` on curve 2
+  at their configs' widths (N = 500 or 1000), depth cut, fp64, each in a
+  fresh directory (``scripts/curve_mains.py``): the regression main on its
+  Euler and preconditioned configs (pls-onb on B1, held to its plain
+  version at the main's shapes and on its inputs), the classification main
+  (four PLS models on the off tier and the SVGP), the Poisson main and one
+  cell of its study, the mixture main and its summary (both modes kept, the
+  shift estimated), and the profiler's sweeps of N, M, T and J in fp32 (PLS
+  on B1 against the SVGP fit).
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
 tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
@@ -67,6 +76,7 @@ plain version, its time, the plain version's time and its bound.
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -1490,12 +1500,12 @@ def b2_backward_check(pt, gram, x_sub, z, x_train):
     return times
 
 
-def b2_backward_keys(launches_11, backward_13):
-    """B2's backward on the slice 4 and 6 paths: the passes the fits ran
-    (phases 11 and 13), and the time of one backward at the exact GP's gram
+def b2_backward_keys(launches_11, backward_harness):
+    """B2's backward on the slice 4, 6 and 7 paths: the passes the fits ran
+    (phases 11, 13 and 14), and the time of one backward at the exact GP's gram
     (5000 x 5000 same-input, fp64) beside the plain version's autograd."""
     backward_ms, plain_ms = launches_11["backward_ms"][(torch.float64, "same")]
-    return {"backward_launches": launches_11["backward"] + backward_13,
+    return {"backward_launches": launches_11["backward"] + backward_harness,
             "backward_ms": backward_ms,
             "backward_plain_ms": plain_ms}
 
@@ -1943,6 +1953,57 @@ def _scale_out(pt, counters, fused_call, mesh):
     return out
 
 
+class B1Calls:
+    """Every call made to B1's wrapper (``training.spectral_train``) while
+    installed: its particles, coefficients and keywords, and the steps it
+    ran; :meth:`hold` then holds B1 to its plain version on them. With
+    ``first_of_shape`` only the first call of each (M, J, T) is recorded and
+    later ones go straight to the wrapper: the profiler's warm-up call is
+    recorded and the timed call of the same shape that follows it is not."""
+
+    def __init__(self, training, first_of_shape=False):
+        self.training, self.wrapper, self.calls = training, training.spectral_train, []
+        self.first_of_shape, self.shapes = first_of_shape, set()
+
+    def __call__(self, w0, decay, shift, energy_sigma, b_rot, **kw):
+        shape = (*w0.shape, kw["num_steps"])
+        if self.first_of_shape and shape in self.shapes:
+            return self.wrapper(w0, decay, shift, energy_sigma, b_rot, **kw)
+        self.shapes.add(shape)
+        inputs = (w0.detach().clone(), tuple(c.detach().clone() for c in (
+            decay, shift, energy_sigma, b_rot)), kw)
+        out = self.wrapper(w0, decay, shift, energy_sigma, b_rot, **kw)
+        self.calls.append((*inputs, int(out[3])))
+        return out
+
+    def install(self):
+        self.training.spectral_train = self
+
+    def remove(self):
+        self.training.spectral_train = self.wrapper
+
+    def hold(self, spec):
+        """B1 at every (M, J, T) the calls gave it (phase 3 (a)'s zero-noise
+        check and tolerances), and on each call's own particles,
+        coefficients, noise scale and seed for 64 noisy steps (phase 3
+        (d)'s), or for the steps the call ran before it stopped: a step-size
+        search's larger steps may diverge (eta sigma > 2), and 64 steps of
+        such a chain leave fp32's range."""
+        shapes = {}
+        for w0, _, kw, _ in self.calls:
+            shapes.setdefault((*w0.shape, kw["num_steps"]), w0)
+        for (m, j, steps), w0 in sorted(shapes.items()):
+            hold_spectral_zero_noise(spec, w0.float(), steps,
+                                     f"B1 zero noise at the main's M={m}, J={j}, T={steps}")
+        for i, (w0, coeffs, kw, steps_run) in enumerate(self.calls):
+            phase_spectral_noisy(spec, w0.float(), steps=max(1, min(64, steps_run)),
+                                 seed=kw["seed"], eta=kw["eta"],
+                                 coeffs=tuple(c.float() for c in coeffs),
+                                 noise_scale=kw["noise_scale"],
+                                 label=f"B1 noisy on the main's call {i + 1} of {len(self.calls)} "
+                                 f"({steps_run} steps run)")
+
+
 # --------------------------------------------------------------------------
 # phase 13: slice 6, the UCI harness's regression and classification mains
 # --------------------------------------------------------------------------
@@ -1977,19 +2038,19 @@ MSE_MAX13, ACCURACY_MIN13 = 0.09, 0.70
 STUDENT_MSE_MAX13 = 0.13
 
 
-def short_config13(main_name):
+def short_config13(main_name, configs=CONFIGS13, depth_keys=DEPTH_KEYS13):
     """The depth-cut config of a main, checked to differ from its source in
     the depth keys only; each cut is printed."""
     from experiments_torch.config import load_config
 
-    source_path, short_path = CONFIGS13[main_name]
+    source_path, short_path = configs[main_name]
     source = load_config(os.path.join(ROOT, source_path))
     short = load_config(os.path.join(ROOT, short_path))
     require(list(short) == list(source) and all(list(short[s]) == list(source[s])
                                                for s in source),
             f"{short_path} has other sections or keys than {source_path}")
     cuts = {(s, k) for s in source for k in source[s] if short[s][k] != source[s][k]}
-    require(cuts <= DEPTH_KEYS13, f"{short_path} changes more than depth: {sorted(cuts)}")
+    require(cuts <= depth_keys, f"{short_path} changes more than depth: {sorted(cuts)}")
     for s, k in sorted(cuts):
         log(f"  cut: {s}.{k} {source[s][k]} -> {short[s][k]} ({source_path})")
     return short
@@ -2028,16 +2089,10 @@ def phase_harness(counters):
     from projected_langevin_sampling_torch.ops.cuda import spectral_train as spec
     from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram
 
-    # every call the mains make to B1's wrapper, its inputs kept to hold B1
-    # at the main path's shapes and on its inputs after (a)
-    b1_calls, b1_wrapper = [], training.spectral_train
-
-    def recording_b1(w0, decay, shift, energy_sigma, b_rot, **kw):
-        b1_calls.append((w0.detach().clone(), tuple(c.detach().clone() for c in (
-            decay, shift, energy_sigma, b_rot)), kw))
-        return b1_wrapper(w0, decay, shift, energy_sigma, b_rot, **kw)
-
-    training.spectral_train = recording_b1
+    # every call the mains make to B1's wrapper, to hold B1 at the main
+    # path's shapes and on its inputs after (a)
+    b1_calls = B1Calls(training)
+    b1_calls.install()
     # the plain PLS models the regression main scores, for pls-student-onb's
     # check without its extra predictive noise
     scored, calculate_metrics = {}, regression.calculate_metrics
@@ -2120,21 +2175,7 @@ def phase_harness(counters):
         require(launches_a["spectral"] >= 1 and launches_a["gram"] >= 1 and backward_a >= 1,
                 f"regression main: B1 {launches_a['spectral']}, B2 {launches_a['gram']}, "
                 f"B2 backward {backward_a}")
-        # B1 held to its plain version at every (M, J, T) the main gave it
-        # (phase 3 (a)'s check and tolerances), and on each call's own
-        # particles, coefficients, noise scale and seed for 64 noisy steps
-        # (phase 3 (d)'s)
-        shapes = {}
-        for w0, _, kw in b1_calls:
-            shapes.setdefault((*w0.shape, kw["num_steps"]), w0)
-        for (m, j, steps), w0 in sorted(shapes.items()):
-            hold_spectral_zero_noise(spec, w0.float(), steps,
-                                     f"B1 zero noise at the main's M={m}, J={j}, T={steps}")
-        for i, (w0, coeffs, kw) in enumerate(b1_calls):
-            phase_spectral_noisy(spec, w0.float(), seed=kw["seed"], eta=kw["eta"],
-                                 coeffs=tuple(c.float() for c in coeffs),
-                                 noise_scale=kw["noise_scale"],
-                                 label=f"B1 noisy on the main's call {i + 1} of {len(b1_calls)}")
+        b1_calls.hold(spec)
         log(f"  (a) {len(values)} values of 12 models, finite"
             + (f" but the conformal NLL {nan_nll} (a zero-width 2/3 interval)" if nan_nll else "")
             + f"; test coverage of the {coverage} intervals (n_test {n_test}, n_val {n_val}, band "
@@ -2166,8 +2207,177 @@ def phase_harness(counters):
         out["backward"] = backward_a + backward_b
         return out
     finally:
-        training.spectral_train = b1_wrapper
+        b1_calls.remove()
         regression.calculate_metrics = calculate_metrics
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# phase 14: slice 7, the curve mains, the Poisson study, the mixture summary
+# and the profiler sweep
+# --------------------------------------------------------------------------
+# each piece's depth cut (scripts/curve_mains.py SHORT) may change only these
+# keys of its source config, the JAX main's own
+DEPTH_KEYS14 = {("kernel", "number_of_epochs"), ("kernel", "number_of_iterations"),
+                ("svgp", "number_of_epochs"), ("pls", "maximum_number_of_steps"),
+                ("profiler", "number_of_seeds")}
+# Limits, each from a CPU run of the same piece, config and seed on the
+# card's machine (python3 scripts/curve_mains.py --device cpu):
+# - pls-onb's test MSE on curve 2 (normalised targets; the test split is the
+#   held-out intervals, four of five at the edges, so it is an
+#   extrapolation): CPU run 1.19 (Euler) and 1.94 (preconditioned); a model
+#   predicting 0 scores about 1. The limit, 4.0, is twice the larger: a
+#   diverged or untrained chain far off the data fails it.
+# - the best PLS test accuracy of the classification main: CPU run 0.537 on
+#   205 test points, mostly extrapolated, where the trained models are near
+#   chance (train accuracy 0.83); the limit, 0.40, is four binomial spreads
+#   (0.035) below it.
+# - pls-onb's test NLL of the Poisson main: CPU run 3.69; the limit is twice.
+# - the mixture summary: CPU run 19 and 31 particles of 50 in the two modes
+#   and an estimated shift of 18.85 (true 20); the limits: at least 10 in
+#   each mode, the shift within 15 to 25.
+MSE_MAX14, ACCURACY_MIN14, NLL_MAX14 = 4.0, 0.40, 7.4
+SHARE_MIN14, SHIFT_BAND14 = 10, (15.0, 25.0)
+
+
+def phase_curves(counters):
+    """The curve mains of ``experiments_torch`` on curve 2 through
+    ``scripts/curve_mains.py``, their configs cut in depth only, fp64 on the
+    card, each in a fresh directory: (a) the regression main on config.yaml
+    (Euler) and config_precond.yaml, (b) the classification main, (c) the
+    Poisson main and one cell of its study, (d) the mixture main and its
+    summary, (e) the profiler's sweeps in fp32."""
+    import tempfile
+
+    from projected_langevin_sampling_torch import training
+    from projected_langevin_sampling_torch.ops.cuda import spectral_train as spec
+    from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram
+
+    curves = runpy.run_path(os.path.join(ROOT, "scripts", "curve_mains.py"))
+    # every depth cut of slice 7, the ones the pieces run among them
+    shorts = sorted(glob.glob(os.path.join(ROOT, "experiments_torch", "curves", "*",
+                                           "config*_short.yaml")))
+    shorts.append(os.path.join(ROOT, curves["SHORT"]["profiler"]))
+    configs = {os.path.relpath(p, ROOT): (
+        os.path.relpath(p, ROOT).replace("experiments_torch", "experiments", 1).replace(
+            "_short.yaml", ".yaml"), os.path.relpath(p, ROOT)) for p in shorts}
+    require(set(curves["SHORT"].values()) <= set(configs) and len(configs) == 9,
+            f"slice 7's depth cuts: {sorted(configs)}")
+    for name in configs:
+        short_config13(name, configs, DEPTH_KEYS14)
+    # every call the regression main makes to B1's wrapper, to hold B1 at
+    # the main's shapes and on its inputs after (a)
+    b1_calls, profiler_b1 = B1Calls(training), None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_curves_")
+    totals = {"backward": 0}
+
+    def run(label, fn):
+        ARDGram.backward_calls = 0
+        out, seconds, launches = run_counted(counters, lambda: fn(os.path.join(tmp, label)))
+        backward = ARDGram.backward_calls
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        totals["backward"] += backward
+        log(f"  {label}: {seconds:.1f} s; launches {launches}, B2 backward passes {backward}")
+        return out, launches, backward
+
+    def finite(values, what):
+        for key, value in values.items():
+            require(math.isfinite(value), f"{what} {key} = {value}")
+
+    try:
+        # (a) the regression main on both configs: pls-onb's candidates on
+        # B1, every GP fit, build and predict on B2
+        b1_calls.install()
+        mses = {}
+        for name in ("regression", "regression_precond"):
+            out, launches, backward = run(name, lambda o, n=name: curves["run_regression"](
+                n, o, "cuda"))
+            mses[name] = out["mse_test"]
+            require(out["mse_test"] < MSE_MAX14,
+                    f"{name}: pls-onb test MSE {out['mse_test']} >= {MSE_MAX14}")
+            require(launches["spectral"] >= 1 and launches["gram"] >= 1 and backward >= 1,
+                    f"{name} main: B1 {launches['spectral']}, B2 {launches['gram']}, "
+                    f"B2 backward {backward}")
+        b1_calls.remove()
+        b1_calls.hold(spec)
+        log(f"  (a) pls-onb test MSE {mses['regression']:.5f} (Euler), "
+            f"{mses['regression_precond']:.5f} (preconditioned); limit {MSE_MAX14}")
+
+        # (b) the classification main: four PLS models on the off tier, the
+        # SVGP, their metric files
+        out, launches, backward = run("classification", lambda o: curves["run_classification"](
+            o, "cuda"))
+        finite(out["values"], "classification")
+        require(out["best_accuracy"] > ACCURACY_MIN14,
+                f"best PLS test accuracy {out['best_accuracy']} <= {ACCURACY_MIN14}")
+        require(launches["gram"] >= 1 and backward >= 1,
+                f"classification main: B2 {launches['gram']}, B2 backward {backward}")
+        log(f"  (b) {len(out['values'])} values, finite; best PLS test accuracy "
+            f"{out['best_accuracy']:.4f} (limit {ACCURACY_MIN14}); "
+            + ", ".join(f"{m} {out['values'][(m, 'acc_test')]:.4f}"
+                        for m in curves["PLS_CLASSIFIERS"] + ["svgp-c"]))
+
+        # (c) the Poisson main, then one cell of its study on the same curve
+        out, launches, _ = run("poisson_regression", lambda o: curves["run_poisson"](o, "cuda"))
+        finite(out["values"], "poisson")
+        require(out["nll_test"] < NLL_MAX14, f"pls-onb test NLL {out['nll_test']} >= {NLL_MAX14}")
+        require(launches["gram"] >= 1, f"Poisson main: B2 {launches['gram']}")
+        study, _, _ = run("study", lambda o: curves["run_study"](o, "cuda"))
+        finite({tuple(r[k] for k in ("model", "metric", "split")): r["value"]
+                for r in study["rows"]}, "study")
+        require({r["model"] for r in study["rows"]} == {"pls-onb", "pls-onb-m0", "pls-ipb",
+                                                        "svgp-gaussian"}, "study models")
+        rows = {(r["model"], r["metric"]): r["value"] for r in study["rows"] if r["split"] == "test"}
+        log(f"  (c) pls-onb test NLL {out['nll_test']:.4f} (limit {NLL_MAX14}), pls-ipb "
+            f"{out['values'][('pls-ipb', 'nll_test')]:.4f}; the study's {len(study['rows'])} rows, "
+            "finite; test NLL and rate RMSE: "
+            + ", ".join(f"{m} {rows[(m, 'nll')]:.4f} / {rows[(m, 'rate_rmse')]:.4f}"
+                        for m in ("pls-onb", "pls-onb-m0", "pls-ipb", "svgp-gaussian")))
+
+        # (d) the mixture main, then its summary
+        out, launches, _ = run("mixture_likelihood", lambda o: curves["run_mixture"](o, "cuda"))
+        row = out["row"]
+        require(os.path.exists(out["table"]), "the summary wrote no table")
+        require(row["bimodal"] and min(row["n_lower"], row["n_upper"]) >= SHARE_MIN14,
+                f"mixture modes {row['n_lower']} and {row['n_upper']}")
+        require(SHIFT_BAND14[0] <= row["est_shift"] <= SHIFT_BAND14[1],
+                f"estimated shift {row['est_shift']} outside {SHIFT_BAND14}")
+        log(f"  (d) particles in the curve mode {row['n_lower']}, in the shifted mode "
+            f"{row['n_upper']} (at least {SHARE_MIN14} each), estimated shift "
+            f"{row['est_shift']:.4f} (true {row['true_shift']}, band {SHIFT_BAND14})")
+
+        # (e) the profiler's sweeps in fp32: every PLS row is two spectral
+        # runs (warm-up and timed), each one B1 launch at T <= 100. B1 is
+        # held at every (M, J, T) the sweeps give it, on the warm-up call's
+        # inputs of each (the timed calls are not recorded)
+        profiler_b1 = B1Calls(training, first_of_shape=True)
+        profiler_b1.install()
+        out, launches, _ = run("profiler", lambda o: curves["run_profiler"](o, "cuda"))
+        profiler_b1.remove()
+        profiler_b1.hold(spec)
+        count, pls_rows = 0, 0
+        for axis, body in out["rows"].items():
+            for _, value, _, model, ms in body:
+                count += 1
+                pls_rows += model == "pls"
+                require(math.isfinite(float(ms)) and float(ms) > 0, f"profiler {axis} {value} {ms}")
+        require(count == 70 and pls_rows == 40, f"profiler rows {count}, PLS {pls_rows}")
+        require(launches["spectral"] >= 2 * pls_rows,
+                f"profiler: B1 {launches['spectral']} launches for {pls_rows} PLS rows")
+        medians = {axis: {model: float(np.median([float(r[4]) for r in body if r[3] == model]))
+                          for model in {r[3] for r in body}}
+                   for axis, body in out["rows"].items()}
+        log(f"  (e) B1 held at the sweeps' {len(profiler_b1.shapes)} shapes (M, J, T): "
+            + ", ".join(str(k) for k in sorted(profiler_b1.shapes)))
+        log(f"  (e) {count} rows, finite and positive; median ms over each sweep: "
+            + "; ".join(f"{axis} " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(m.items()))
+                        for axis, m in medians.items()))
+        return totals
+    finally:
+        b1_calls.remove()
+        if profiler_b1 is not None:
+            profiler_b1.remove()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2266,22 +2476,27 @@ def main() -> int:
     launches_13 = phase(f"phase 13: slice 6, the UCI harness's regression main on kin8nm "
                         f"({ROWS13['kin8nm']} rows) and classification main on rice "
                         f"({ROWS13['rice']} rows), fp64, depth cut", phase_harness, counters)
+    launches_14 = phase("phase 14: slice 7, the curve mains (regression, classification, Poisson "
+                        "and its study, mixture and its summary) on curve 2, fp64, and the "
+                        "profiler sweep, fp32, depth cut", phase_curves, counters)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/spectral_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/spectral_train.py:120",
-         # the slice 1 path's launches and the harness's (phase 13)
-         "launches": launches["spectral"] + launches_13["spectral"], "library_ms": None,
+         # the slice 1 path's launches and the harnesses' (phases 13, 14)
+         "launches": launches["spectral"] + launches_13["spectral"] + launches_14["spectral"],
+         "library_ms": None,
          "matched": True, **spec_res},
         {"name": "ard_gram", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/gram.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
          # the slice 1 path's launches, the slice 4 path's (phase 11) and the
-         # harness's (phase 13)
-         "launches": launches["gram"] + launches_11["gram"] + launches_13["gram"],
+         # harnesses' (phases 13, 14)
+         "launches": (launches["gram"] + launches_11["gram"] + launches_13["gram"]
+                      + launches_14["gram"]),
          "library_ms": None, "matched": True, **gram_res,
-         **b2_backward_keys(launches_11, launches_13["backward"])},
+         **b2_backward_keys(launches_11, launches_13["backward"] + launches_14["backward"])},
         {"name": "general_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/general_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/general_train.py:307",

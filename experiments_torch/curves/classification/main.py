@@ -1,0 +1,232 @@
+"""1-D binary-classification experiments (counterpart of
+``experiments/curves/classification/main.py``): the ONB and IPB bases x the
+sigmoid and probit Bernoulli costs, four PLS models, plus the SVGP baseline
+with a probit-Bernoulli likelihood, scored into metric CSVs.
+
+Runs on the card (``--device cuda``) in fp64 (``--dtype float64``) unless
+asked otherwise, and never moves to the CPU on its own. It writes every
+results CSV and checkpoint the JAX main writes and no plot; ``main``
+returns the models.
+
+    python -m experiments_torch.curves.classification.main \\
+        --config_path experiments/curves/classification/config.yaml --curve 2
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from experiments_torch.config import load_config
+from experiments_torch.curves.common import (
+    experiment_data_on,
+    learn_kernel_and_inducing_points,
+    refuse_gif,
+    train_or_load_pls,
+)
+from experiments_torch.curves.curves import Curve, curves_of
+from experiments_torch.data import Data, ExperimentData, ProblemType
+from experiments_torch.metrics import calculate_metrics
+from experiments_torch.preprocess import split_regression_data_intervals
+from experiments_torch.runners import train_svgp_runner
+from experiments_torch.utils import Stages, str2bool
+from projected_langevin_sampling_torch.models.basis.inducing_point import (
+    build_inducing_point_basis,
+)
+from projected_langevin_sampling_torch.models.basis.orthonormal import build_orthonormal_basis
+from projected_langevin_sampling_torch.models.costs import BernoulliCost
+from projected_langevin_sampling_torch.models.gaussian_process import BernoulliLikelihood
+from projected_langevin_sampling_torch.models.link_functions import (
+    ProbitLinkFunction,
+    SigmoidLinkFunction,
+)
+from projected_langevin_sampling_torch.models.pls import PLS
+
+
+def get_experiment_data(
+    curve_function: Curve,
+    number_of_data_points: int,
+    seed: int,
+    number_of_test_intervals: int,
+    total_number_of_intervals: int,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+) -> ExperimentData:
+    """Labels drawn on the host from ``seed`` with P(1) = sigmoid(2 curve),
+    which is ``y_untransformed``; the test intervals held out."""
+    x = torch.linspace(-3, 3, number_of_data_points, dtype=dtype).reshape(-1, 1)
+    y_curve = 2 * curve_function.calculate_curve(x=x).reshape(-1)
+    y = curve_function.classification(y_curve=y_curve, generator=seed)
+    y_untransformed = SigmoidLinkFunction()(y_curve)
+    (x_train, y_train, y_train_u, x_test, y_test, y_test_u) = split_regression_data_intervals(
+        split_seed=curve_function.seed,
+        x=x,
+        y=y,
+        y_untransformed=y_untransformed,
+        number_of_test_intervals=number_of_test_intervals,
+        total_number_of_intervals=total_number_of_intervals,
+    )
+    return experiment_data_on(ExperimentData(
+        name=type(curve_function).__name__.lower(),
+        problem_type=ProblemType.CLASSIFICATION,
+        full=Data(x=x, y=y, y_untransformed=y_untransformed, name="full"),
+        train=Data(x=x_train, y=y_train, y_untransformed=y_train_u, name="train"),
+        test=Data(x=x_test, y=y_test, y_untransformed=y_test_u, name="test"),
+    ), device, dtype)
+
+
+def main(
+    curve_function: Curve,
+    data_config: dict,
+    kernel_config: dict,
+    inducing_points_config: dict,
+    pls_config: dict,
+    svgp_config: dict,
+    outputs_path: str,
+    include_gif: bool = False,
+    device="cuda",
+    dtype: torch.dtype = torch.float64,
+) -> dict:
+    """Returns ``{"experiment_data", "pls": {name: (model, particles)},
+    "svgp"}`` (``svgp`` None where every learning rate diverged)."""
+    refuse_gif(include_gif)
+    stages = Stages(device)
+    experiment_data = get_experiment_data(
+        curve_function=curve_function,
+        number_of_data_points=data_config["number_of_data_points"],
+        seed=data_config["seed"],
+        number_of_test_intervals=data_config["number_of_test_intervals"],
+        total_number_of_intervals=data_config["total_number_of_intervals"],
+        device=device,
+        dtype=dtype,
+    )
+    curve_name = type(curve_function).__name__.lower()
+    data_path = os.path.join(outputs_path, "data", curve_name)
+    models_path = os.path.join(outputs_path, "models", curve_name)
+    results_path = os.path.join(outputs_path, "results", curve_name)
+    stages.done("data")
+
+    # kernel learned on Dirichlet-transformed logit-scale targets
+    (_, _, _, mean_constant, inducing_points, pls_kernel) = learn_kernel_and_inducing_points(
+        experiment_data=experiment_data,
+        kernel_config=kernel_config,
+        inducing_points_config=inducing_points_config,
+        models_path=models_path,
+        data_path=data_path,
+        dirichlet_labels=True,
+    )
+    # opt-in (pls: mean_constant: gp): the learned GP mean constant the SVGP gets
+    pls_mean_constant = float(mean_constant) if pls_config.get("mean_constant") == "gp" else 0.0
+    onb_basis = build_orthonormal_basis(
+        kernel=pls_kernel,
+        x_induce=inducing_points.x,
+        x_train=experiment_data.train.x,
+        scaling=pls_config.get("onb_scaling", "reference"),
+        mean_constant=pls_mean_constant,
+    )
+    ipb_basis = build_inducing_point_basis(
+        kernel=pls_kernel,
+        x_induce=inducing_points.x,
+        y_induce=inducing_points.y,
+        x_train=experiment_data.train.x,
+        mean_constant=pls_mean_constant,
+    )
+    stages.done("Dirichlet exact GPs, inducing points, ONB and IPB builds")
+    sigmoid_cost = BernoulliCost(y_train=experiment_data.train.y,
+                                 link_function=SigmoidLinkFunction())
+    probit_cost = BernoulliCost(y_train=experiment_data.train.y,
+                                link_function=ProbitLinkFunction())
+    pls_dict = {
+        "pls-onb-probit": PLS(basis=onb_basis, cost=probit_cost),
+        "pls-ipb-probit": PLS(basis=ipb_basis, cost=probit_cost),
+        "pls-onb-sigmoid": PLS(basis=onb_basis, cost=sigmoid_cost),
+        "pls-ipb-sigmoid": PLS(basis=ipb_basis, cost=sigmoid_cost),
+    }
+    trained = {}
+    for pls_name, pls in pls_dict.items():
+        particles, _, _ = train_or_load_pls(
+            pls=pls,
+            pls_name=pls_name,
+            experiment_data=experiment_data,
+            pls_config=pls_config,
+            models_path=models_path,
+        )
+        calculate_metrics(
+            model=pls,
+            experiment_data=experiment_data,
+            model_name=pls_name,
+            dataset_name=curve_name,
+            results_path=results_path,
+            coverage=0.95,
+            particles=particles,
+        )
+        trained[pls_name] = (pls, particles)
+        stages.done(f"{pls_name} step-size search, predictions and metrics")
+
+    # SVGP baseline with a probit-Bernoulli likelihood
+    svgp, _, _ = train_svgp_runner(
+        model_name="svgp-c",
+        experiment_data=experiment_data,
+        inducing_points=inducing_points,
+        kernel=pls_kernel,
+        likelihood=BernoulliLikelihood(),
+        seed=svgp_config["seed"],
+        number_of_epochs=svgp_config["number_of_epochs"],
+        batch_size=svgp_config["batch_size"],
+        learning_rate_upper=svgp_config["learning_rate_upper"],
+        learning_rate_lower=svgp_config["learning_rate_lower"],
+        number_of_learning_rate_searches=svgp_config["number_of_learning_rate_searches"],
+        is_fixed=True,
+        mean_constant=float(mean_constant),
+        early_stopper_patience=svgp_config["early_stopper_patience"],
+        models_path=os.path.join(models_path, "svgp-c-kernel-iterations"),
+    )
+    if svgp is not None:
+        calculate_metrics(
+            model=svgp,
+            experiment_data=experiment_data,
+            model_name="svgp-c",
+            dataset_name=curve_name,
+            results_path=results_path,
+            coverage=0.95,
+        )
+    stages.done("svgp-c learning-rate search and metrics")
+    return {"experiment_data": experiment_data, "pls": trained, "svgp": svgp}
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Main script for toy classification experiments.")
+    p.add_argument("--config_path", type=str, required=True)
+    p.add_argument("--include_gif", type=str2bool, default=False,
+                   help="GIFs of the particles: not drawn by the port (raises).")
+    p.add_argument("--curve", type=int, default=None,
+                   help="Run only the given curve index (1-based); default all.")
+    p.add_argument("--outputs_dirname", type=str, default="outputs")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dtype", type=str, default="float64", choices=("float64", "float32"))
+    return p
+
+
+def cli(argv: list[str] | None = None) -> None:
+    args = parser().parse_args(argv)
+    config = load_config(args.config_path)
+    outputs_path = os.path.join(os.path.dirname(os.path.realpath(__file__)), args.outputs_dirname)
+    for curve_function in curves_of(args.curve):
+        main(
+            curve_function=curve_function,
+            data_config=config["data"],
+            kernel_config=config["kernel"],
+            inducing_points_config=config["inducing_points"],
+            pls_config=config["pls"],
+            svgp_config=config["svgp"],
+            outputs_path=outputs_path,
+            include_gif=args.include_gif,
+            device=args.device,
+            dtype=getattr(torch, args.dtype),
+        )
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,7 +1,9 @@
 """High-level orchestration (counterpart of ``experiments/runners.py``):
 inducing-point selection, subsample-GP kernel learning, the log-spaced
 step-size search for PLS and the log-spaced learning-rate search for SVGP.
-The JAX harness's plotting runners are not ported here.
+The JAX harness's plotting runners draw nothing here:
+:func:`predict_pls_1d_particles_runner` makes the predictions its 1-D
+particle plot draws and returns them, and its GIF runner is not ported.
 
 ``subsample_data_indices`` rebuilds the JAX harness's scikit-learn
 ``NearestNeighbors`` query in numpy: the ``subsample_size`` rows nearest a
@@ -36,6 +38,7 @@ from experiments_torch.metrics import (
 )
 from experiments_torch.trainers import train_exact_gp, train_pls, train_svgp
 from experiments_torch.utils import create_directory
+from projected_langevin_sampling_torch.models.conformalise.pls import ConformalisePLS
 from projected_langevin_sampling_torch.models.gaussian_process.dirichlet import (
     dirichlet_classification_targets,
 )
@@ -43,6 +46,7 @@ from projected_langevin_sampling_torch.models.inducing_point_selectors.base impo
     InducingPointSelector,
 )
 from projected_langevin_sampling_torch.models.pls import PLS
+from projected_langevin_sampling_torch.models.temper.pls import TemperPLS
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel
 from projected_langevin_sampling_torch.training import resolve_tier
 
@@ -476,3 +480,31 @@ def train_svgp_runner(
             model_out = model
             losses_out = losses
     return model_out, losses_out, best_learning_rate
+
+
+def predict_pls_1d_particles_runner(pls, particles: torch.Tensor,
+                                    experiment_data: ExperimentData):
+    """The predictions of the JAX harness's ``plot_pls_1d_particles_runner``
+    on the full grid, which it plots and this returns:
+    ``(predicted distribution, predicted samples, untransformed samples)``.
+    The distribution is ``PLS.predict`` with generator 0, or the conformal
+    model's ``predict`` at coverage 0.95 or the tempered model's; for a
+    plain PLS the samples are ``predict_samples`` with generator 1 and,
+    where the data carry ``y_untransformed``,
+    ``predict_untransformed_samples`` with generator 2 (else None)."""
+    x_full = experiment_data.full.x
+    if isinstance(pls, PLS):
+        predicted_distribution = pls.predict(x=x_full, particles=particles, generator=0)
+    elif isinstance(pls, ConformalisePLS):
+        predicted_distribution = pls.predict(x=x_full, coverage=0.95)
+    elif isinstance(pls, TemperPLS):
+        predicted_distribution = pls.predict(x=x_full)
+    else:
+        raise TypeError(f"Unknown PLS type: {type(pls)}")
+    predicted_samples = untransformed = None
+    if isinstance(pls, PLS):
+        predicted_samples = pls.predict_samples(x=x_full, particles=particles, generator=1)
+        if experiment_data.full.y_untransformed is not None:
+            untransformed = pls.predict_untransformed_samples(x=x_full, particles=particles,
+                                                              generator=2)
+    return predicted_distribution, predicted_samples, untransformed

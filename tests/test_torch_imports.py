@@ -24,6 +24,7 @@ FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + HAR
     ROOT / "scripts" / "kernel_outputs.py",
     ROOT / "scripts" / "scale_out_cards.py",
     ROOT / "scripts" / "uci_pls_seeds.py",
+    ROOT / "scripts" / "curve_mains.py",
 ]
 
 
@@ -74,5 +75,9 @@ def test_harness_has_the_slice_modules():
     for module in ("utils.py", "config.py", "data.py", "uci/constants.py",
                    "uci/make_synthetic_datasets.py", "preprocess.py", "constructors.py",
                    "loaders.py", "metrics.py", "trainers.py", "runners.py",
-                   "uci/regression/main.py", "uci/classification/main.py"):
+                   "uci/regression/main.py", "uci/classification/main.py",
+                   "curves/curves.py", "curves/common.py", "curves/regression/main.py",
+                   "curves/classification/main.py", "curves/poisson_regression/main.py",
+                   "curves/poisson_regression/study.py", "curves/mixture_likelihood/main.py",
+                   "curves/mixture_likelihood/summarise.py", "profiler/main.py"):
         assert f"experiments_torch/{module}" in names
