@@ -48,7 +48,18 @@ each run with the launch counters set to 0 just before it and read just after:
   (four PLS models on the off tier and the SVGP), the Poisson main and one
   cell of its study, the mixture main and its summary (both modes kept, the
   shift estimated), and the profiler's sweeps of N, M, T and J in fp32 (PLS
-  on B1 against the SVGP fit).
+  on B1 against the SVGP fit);
+- slice 8 (phase 15), fp64, each piece in a fresh directory
+  (``scripts/slice8_tools.py``): the real sklearn-bundled UCI sets from the
+  repo's raw tables (shapes, and whether the JAX script's sha256 pins
+  match); the regression main on diabetes_sklearn and the classification
+  main on wine_uci and breast_wdbc; the gap attribution on the latter's
+  checkpoints, every row through its validation gate; the SVGP audit on
+  diabetes_sklearn and synthetic energy_cooling; the ONB-scaling comparison
+  on two curves; and the regression main on config_parallel's protocol on a
+  1 x 1 mesh over a world-size-1 NCCL group, whose pls* metric files equal
+  the same main's without the mesh bit for bit. B1 is held to its plain
+  version on each shape's first call.
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
 tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
@@ -2381,6 +2392,204 @@ def phase_curves(counters):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 15: slice 8, the real sklearn-bundled data, the gap attribution, the
+# SVGP audit, the ONB scalings and the parallel regression main
+# --------------------------------------------------------------------------
+# each piece's depth cut (scripts/slice8_tools.py SHORT) may change only these
+# keys of its source config; the 1 x 1 config also the mesh (pls.parallel)
+DEPTH_KEYS15 = DEPTH_KEYS13 | {("pls", "parallel")}
+CONFIGS15 = {
+    "regression": ("experiments/uci/regression/config_precond_map.yaml",
+                   "experiments_torch/uci/regression/config_precond_map_real_short.yaml"),
+    "classification": ("experiments/uci/classification/config_precond_smooth.yaml",
+                       "experiments_torch/uci/classification/"
+                       "config_precond_smooth_real_short.yaml"),
+    "parallel": ("experiments/uci/regression/config_parallel.yaml",
+                 "experiments_torch/uci/regression/config_parallel_1x1_short.yaml"),
+}
+# Limits, each from a CPU run of the same pieces on the same data
+# (python3 scripts/slice8_tools.py --device cpu):
+# - pls-onb's test MSE on diabetes_sklearn (normalised targets): CPU run
+#   0.5033; the reference's ten seeds at full depth 0.4851 +- 0.0649
+#   (RESULTS.md:239-300). 0.75 is four of those spreads above the reference
+#   and fails an untrained model (a zero prediction scores about 1) and the
+#   SVGP at this depth (0.8195).
+# - pls-onb's test accuracy: CPU run 1.0 on wine_uci's 18 test points and
+#   0.9649 on breast_wdbc's 57; each limit is four binomial spreads below it
+#   (at p = 0.97 for wine_uci), above the majority class (0.67 and 0.63).
+# - the SVGP audit's |NLL delta| (harness - rebuild): CPU run 0.0006 and
+#   0.0118; the limit is four times the larger.
+# - the ONB comparison's PLS test NLLs: CPU run at most 1.4931; a chain that
+#   never found a stable step (every candidate diverged) scored 3.90; the
+#   limit is twice the CPU's.
+MSE_MAX15 = 0.75
+ACCURACY_MIN15 = {"wine_uci": 0.83, "breast_wdbc": 0.87}
+AUDIT_DELTA_MAX15, ONB_NLL_MAX15 = 0.05, 3.0
+# the zero-noise hold's steps at most: the plain loop runs about 0.7 ms a step
+B1_HOLD_STEPS15 = 4000
+
+
+def phase_slice8(counters):
+    """The pieces of ``scripts/slice8_tools.py``, fp64 on the card, each in
+    a fresh directory: (a) the real frames, (b) the UCI mains on them, (c)
+    the gap attribution, (d) the SVGP audit, (e) the ONB scalings on two
+    curves, (f) the parallel regression main on a 1 x 1 mesh against the
+    same main without it, (g) B1 on each shape's first call."""
+    import tempfile
+
+    from experiments_torch.compare_onb_scaling import jax_protocol_config
+    from projected_langevin_sampling_torch import training
+    from projected_langevin_sampling_torch.ops.cuda import spectral_train as spec
+    from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram
+
+    tools = runpy.run_path(os.path.join(ROOT, "scripts", "slice8_tools.py"))
+    require({k: v[1] for k, v in CONFIGS15.items()}.items() <= tools["SHORT"].items(),
+            "phase 15's configs are slice8_tools.py's")
+    for name in CONFIGS15:  # the audit's config_precond_map_short.yaml: phase 13
+        short_config13(name, CONFIGS15, DEPTH_KEYS15)
+    onb_source = jax_protocol_config(os.path.join(ROOT, "experiments", "curves", "regression",
+                                                  "config.yaml"))
+    onb_short = tools["config_of"]("onb_scaling")
+    cuts = {(s, k) for s in onb_source for k in onb_source[s]
+            if onb_short[s][k] != onb_source[s][k]}
+    require(list(onb_short) == list(onb_source) and cuts <= DEPTH_KEYS14 | DEPTH_KEYS13,
+            f"the ONB comparison's config changes more than depth: {sorted(cuts)}")
+    for sec, key in sorted(cuts):
+        log(f"  cut: {sec}.{key} {onb_source[sec][key]} -> {onb_short[sec][key]} "
+            "(the JAX compare_onb_scaling protocol)")
+    b1_calls = B1Calls(training, first_of_shape=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice8_")
+    datasets = os.path.join(tmp, "datasets")
+    totals = {"backward": 0}
+
+    def run(label, fn):
+        ARDGram.backward_calls = 0
+        out, seconds, launches = run_counted(counters, lambda: fn(os.path.join(tmp, label)))
+        backward = ARDGram.backward_calls
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        totals["backward"] += backward
+        log(f"  {label}: {seconds:.1f} s; launches {launches}, B2 backward passes {backward}")
+        return out, launches
+
+    try:
+        b1_calls.install()
+        # (a) the real frames (and synthetic energy_cooling at its 768 rows)
+        fetched, _ = run("fetch", lambda o: tools["write_inputs"](datasets))
+        require(fetched["shapes"] == tools["SHAPES"],
+                f"frames {fetched['shapes']} against the JAX script's {tools['SHAPES']}")
+        log("  (a) rows and columns as the JAX script's: " + ", ".join(
+            f"{n} {r}x{c}" for n, (r, c) in fetched["shapes"].items())
+            + "; sha256 pins (experiments/uci/datasets/checksums.json): " + ", ".join(
+            f"{n} {'match' if ok else 'differ'}" for n, ok in fetched["pins"].items()))
+
+        # (b) the mains on the real sets: pls-onb on B1 (regression), every
+        # GP fit, build and predict on B2
+        reference = tools["REFERENCE"]
+        out, launches = run("regression", lambda o: tools["run_regression"](datasets, o, "cuda"))
+        values = out["values"]
+        for (model, name), value in values.items():
+            require(math.isfinite(value) or (model.endswith("conformalise") and name.startswith(
+                "nll") and math.isnan(value)), f"regression {model} {name} = {value}")
+        mse = values[("pls-onb", "mse_test")]
+        require(mse < MSE_MAX15, f"diabetes_sklearn pls-onb test MSE {mse} >= {MSE_MAX15}")
+        require(launches["spectral"] >= 1 and launches["gram"] >= 1,
+                f"regression main: B1 {launches['spectral']}, B2 {launches['gram']}")
+        log(f"  (b) diabetes_sklearn ({len(values)} values): " + "; ".join(
+            f"{metric} pls-onb {values[('pls-onb', metric + '_test')]:.4f}, svgp "
+            f"{values[('svgp', metric + '_test')]:.4f} (reference, 10 seeds at full depth: "
+            f"{reference[('diabetes_sklearn', metric)][0]}, "
+            f"{reference[('diabetes_sklearn', metric)][1]})" for metric in ("nll", "mse"))
+            + f"; MSE limit {MSE_MAX15}")
+        out, launches = run("classification",
+                            lambda o: tools["run_classification"](datasets, o, "cuda"))
+        require(launches["gram"] >= 1, f"classification main: B2 {launches['gram']}")
+        for name, vals in out["values"].items():
+            for (model, metric), value in vals.items():
+                require(math.isfinite(value), f"{name} {model} {metric} = {value}")
+            accuracy = vals[("pls-onb", "acc_test")]
+            require(accuracy > ACCURACY_MIN15[name],
+                    f"{name} pls-onb test accuracy {accuracy} <= {ACCURACY_MIN15[name]}")
+            log(f"  (b) {name}: " + "; ".join(
+                f"{metric} pls-onb {vals[('pls-onb', metric + '_test')]:.4f}, svgp "
+                f"{vals[('svgp', metric + '_test')]:.4f} (reference: "
+                f"{reference[(name, metric)][0]}, {reference[(name, metric)][1]})"
+                for metric in ("acc", "nll"))
+                + f"; accuracy limit {ACCURACY_MIN15[name]}")
+
+        # (c) the gap attribution on (b)'s classification checkpoints
+        out, _ = run("gap", lambda o: tools["run_gap"](os.path.join(tmp, "classification"), o,
+                                                      "cuda"))
+        rows = out["rows"]
+        require(sorted(r["dataset"] for r in rows) == sorted(tools["CLASSIFICATION_SETS"]),
+                f"gap rows {[r['dataset'] for r in rows]}")
+        for r in rows:
+            require(r["validated"], f"{r['dataset']}: the gate failed: pls {r['pls_nll']} vs "
+                    f"{r['pls_nll_recorded']}, svgp {r['svgp_nll']} vs {r['svgp_nll_recorded']}")
+            log(f"  (c) {r['dataset']}: validated (|pls - recorded| "
+                f"{abs(r['pls_nll'] - r['pls_nll_recorded']):.2e}, |svgp - recorded| "
+                f"{abs(r['svgp_nll'] - r['svgp_nll_recorded']):.2e}); delta {r['delta']:+.4f}, "
+                f"MC std {r['pls_mc_std']:.4f}, recalibrated pls/svgp {r['pls_nll_recal']:.4f}/"
+                f"{r['svgp_nll_recal']:.4f}, latent var pls/svgp {r['pls_latent_var']:.3f}/"
+                f"{r['svgp_latent_var']:.3f}, extended ({r['extra_steps']} steps) "
+                f"{r['pls_nll_extended']:.4f}")
+
+        # (d) the SVGP audit: the harness's SVGP (B2) against the rebuild
+        out, launches = run("audit", lambda o: tools["run_audit"](datasets, o, "cuda"))
+        require(launches["gram"] >= 1, f"audit: B2 {launches['gram']}")
+        for r in out["rows"]:
+            delta = r["harness_nll"] - r["rebuild_nll"]
+            require(all(math.isfinite(v) for v in r.values() if isinstance(v, float)),
+                    f"audit {r}")
+            require(abs(delta) <= AUDIT_DELTA_MAX15,
+                    f"audit {r['dataset']}: NLL delta {delta} beyond {AUDIT_DELTA_MAX15}")
+            log(f"  (d) {r['dataset']}: NLL harness {r['harness_nll']:.4f}, rebuild "
+                f"{r['rebuild_nll']:.4f}, delta {delta:+.4f} (limit {AUDIT_DELTA_MAX15}); "
+                f"noise {r['harness_noise']:.4f} / {r['rebuild_noise']:.4f}")
+
+        # (e) the ONB scalings on two curves, both on B1
+        out, launches = run("onb_scaling", lambda o: tools["run_onb_scaling"](o, "cuda"))
+        require(len(out["rows"]) == len(tools["ONB_CURVES"]), f"ONB rows {out['rows']}")
+        for r in out["rows"]:
+            require(all(math.isfinite(r.get(c, math.nan)) for c in
+                        ("reference_mse", "nystrom_mse", "svgp_mse", "reference_nll",
+                         "nystrom_nll", "svgp_nll")), f"ONB row {r}")
+            require(max(r["reference_nll"], r["nystrom_nll"]) < ONB_NLL_MAX15,
+                    f"ONB {r['curve']}: PLS test NLL beyond {ONB_NLL_MAX15}")
+        require(launches["spectral"] >= 2 * len(out["rows"]), f"ONB: B1 {launches['spectral']}")
+        log("  (e) " + "; ".join(
+            f"{r['curve']} NLL reference {r['reference_nll']:.4f}, nystrom {r['nystrom_nll']:.4f},"
+            f" svgp {r['svgp_nll']:.4f}; MSE {r['reference_mse']:.4f}, {r['nystrom_mse']:.4f}, "
+            f"{r['svgp_mse']:.4f}" for r in out["rows"]) + f"; counts {out['counts']}")
+
+        # (f) config_parallel's protocol on a 1 x 1 mesh, NCCL, against the
+        # main without the mesh: the pls* files bit for bit
+        out, launches = run("parallel", lambda o: tools["run_parallel"](datasets, o, "cuda"))
+        require(tuple(out["mesh"]) == (1, 1) and out["backend"] == "nccl",
+                f"mesh {out['mesh']} on {out['backend']}")
+        require(out["compared"] >= 40 and not out["differ"],
+                f"parallel main: {out['differ']} of {out['compared']} pls* files differ")
+        require(launches["spectral"] >= 2, f"parallel: B1 {launches['spectral']}")
+        log(f"  (f) mesh {tuple(out['mesh'])} on a world-size-1 {out['backend']} group: "
+            f"{out['compared']} pls* metric files equal the single-process main's bit for bit")
+
+        # (g) B1 on each shape's first call in this phase
+        b1_calls.remove()
+        long_calls = [c for c in b1_calls.calls if c[2]["num_steps"] > B1_HOLD_STEPS15]
+        for w0, _, kw, _ in long_calls:
+            kw["num_steps"] = B1_HOLD_STEPS15
+        b1_calls.hold(spec)
+        log(f"  (g) B1 held at the phase's {len(b1_calls.shapes)} shapes (M, J, T): "
+            + ", ".join(str(k) for k in sorted(b1_calls.shapes))
+            + f"; zero-noise holds of the {len(long_calls)} calls longer than "
+            f"{B1_HOLD_STEPS15} steps run their first {B1_HOLD_STEPS15}")
+        return totals
+    finally:
+        b1_calls.remove()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2391,7 +2600,7 @@ def main() -> int:
     from projected_langevin_sampling_torch.utils.backend import ensure_live_backend
 
     # a GPU driver that hangs CUDA's initialisation hangs a child, not this run
-    t0 = time.perf_counter()
+    script_start = t0 = time.perf_counter()
     ensure_live_backend(120.0, context="chip_smoke")
     log(f"backend probe: CUDA initialises in a subprocess ({time.perf_counter() - t0:.1f} s)")
     from projected_langevin_sampling_torch.ops.cuda import general_train as gen
@@ -2479,24 +2688,29 @@ def main() -> int:
     launches_14 = phase("phase 14: slice 7, the curve mains (regression, classification, Poisson "
                         "and its study, mixture and its summary) on curve 2, fp64, and the "
                         "profiler sweep, fp32, depth cut", phase_curves, counters)
+    launches_15 = phase("phase 15: slice 8, the UCI mains on the real sklearn-bundled sets, the "
+                        "gap attribution, the SVGP audit, the ONB scalings and the parallel "
+                        "regression main on a 1 x 1 mesh, fp64, depth cut", phase_slice8, counters)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/spectral_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/spectral_train.py:120",
-         # the slice 1 path's launches and the harnesses' (phases 13, 14)
-         "launches": launches["spectral"] + launches_13["spectral"] + launches_14["spectral"],
+         # the slice 1 path's launches and the harnesses' (phases 13-15)
+         "launches": (launches["spectral"] + launches_13["spectral"] + launches_14["spectral"]
+                      + launches_15["spectral"]),
          "library_ms": None,
          "matched": True, **spec_res},
         {"name": "ard_gram", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/gram.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
          # the slice 1 path's launches, the slice 4 path's (phase 11) and the
-         # harnesses' (phases 13, 14)
+         # harnesses' (phases 13-15)
          "launches": (launches["gram"] + launches_11["gram"] + launches_13["gram"]
-                      + launches_14["gram"]),
+                      + launches_14["gram"] + launches_15["gram"]),
          "library_ms": None, "matched": True, **gram_res,
-         **b2_backward_keys(launches_11, launches_13["backward"] + launches_14["backward"])},
+         **b2_backward_keys(launches_11, launches_13["backward"] + launches_14["backward"]
+                            + launches_15["backward"])},
         {"name": "general_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/general_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/general_train.py:307",
@@ -2515,7 +2729,8 @@ def main() -> int:
     key_order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "matched",
                  "backward_launches", "backward_ms", "backward_plain_ms"]
-    log(f"all phases passed in {time.perf_counter() - start:.1f} s")
+    log(f"all phases passed in {time.perf_counter() - start:.1f} s (the build included); the "
+        f"whole script {time.perf_counter() - script_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{k: kern[k] for k in key_order if k in kern}
                                   for kern in kernels]}))

@@ -7,7 +7,14 @@ fitted to the subsample-GP residuals with scipy.
 Runs on the card (``--device cuda``) in fp64 (``--dtype float64``, the JAX
 main's default) unless asked otherwise; it never moves to the CPU on its
 own. It writes every results CSV and checkpoint the JAX main writes, and no
-plot.
+plot. A config with ``pls.parallel`` (``config_parallel.yaml``) runs one
+process a rank (see :func:`main`):
+
+    torchrun --nproc-per-node 4 -m experiments_torch.uci.regression.main \\
+        --config_path experiments_torch/uci/regression/config_parallel_2x2_short.yaml \\
+        --dataset energy_cooling --data_seed 0
+    python -m experiments_torch.uci.regression.launch_cpu_ranks --ranks 8 -- \\
+        --config_path experiments/uci/regression/config_parallel.yaml ...
 
     python -m experiments_torch.uci.regression.main \\
         --config_path experiments/uci/regression/config_precond_map.yaml \\
@@ -19,10 +26,13 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import shutil
+import tempfile
 import traceback
 
 import scipy.stats
 import torch
+import torch.distributed as dist
 
 from experiments_torch.config import load_config
 from experiments_torch.constructors import (
@@ -75,6 +85,7 @@ from projected_langevin_sampling_torch.models.pls import PLS
 from projected_langevin_sampling_torch.models.temper.gp import TemperGP
 from projected_langevin_sampling_torch.models.temper.pls import TemperPLS
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel
+from projected_langevin_sampling_torch.parallel import initialize_multi_host
 
 MODEL_NAMES = [
     "pls-onb",
@@ -147,7 +158,63 @@ def main(
 ) -> None:
     """``models_filter``: restrict the PLS/SVGP model loop to these base
     model names (e.g. ``{"svgp-student"}``), for metrics-only passes over
-    partly populated output directories."""
+    partly populated output directories.
+
+    With ``pls.parallel`` (``{"data": D, "particles": P}``) the run is one
+    rank of D x P: it joins the process group first
+    (``initialize_multi_host``, from torchrun's environment unless a group
+    exists; NCCL, or gloo for ``device="cpu"``). Every rank computes the
+    same data, GPs, inducing points and bases from the same seeds and trains
+    its share of the particles. Only rank 0 writes to ``outputs_path`` and
+    scores the models; the others work in a private copy of this seed's
+    and dataset's data and models as they stood at the start (so every rank
+    makes the same train-or-load choices), skip the metrics and the SVGPs,
+    wait at a barrier for rank 0 and delete their copy."""
+    if not pls_config.get("parallel"):
+        _main(data_seed, dataset_name, data_config, kernel_config, inducing_points_config,
+              pls_config, svgp_config, metrics_config, outputs_path, models_filter,
+              datasets_dir, device, dtype, writer=True)
+        return
+    rank, _ = initialize_multi_host(device=device)
+    if not dist.is_initialized():
+        raise ValueError(f"pls.parallel={pls_config['parallel']} runs one process a rank: start "
+                         "the main under torchrun (or launch_cpu_ranks on the CPU)")
+    dist.barrier()  # no rank copies the tree while rank 0 writes it
+    scratch = None
+    if rank != 0:
+        scratch = tempfile.mkdtemp(prefix=f"uci_regression_rank{rank}_")
+        for part in ("data", "models"):
+            src = os.path.join(outputs_path, str(data_seed), part, dataset_name)
+            if os.path.isdir(src):
+                shutil.copytree(src, os.path.join(scratch, str(data_seed), part, dataset_name))
+    try:
+        _main(data_seed, dataset_name, data_config, kernel_config, inducing_points_config,
+              pls_config, svgp_config, metrics_config, scratch or outputs_path, models_filter,
+              datasets_dir, device, dtype, writer=rank == 0)
+        dist.barrier()
+    finally:
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+
+
+def _main(
+    data_seed: int,
+    dataset_name: str,
+    data_config: dict,
+    kernel_config: dict,
+    inducing_points_config: dict,
+    pls_config: dict,
+    svgp_config: dict,
+    metrics_config: dict,
+    outputs_path: str,
+    models_filter: set[str] | None,
+    datasets_dir: str,
+    device,
+    dtype: torch.dtype,
+    writer: bool,
+) -> None:
+    """The run of :func:`main`; ``writer`` False skips the metrics and the
+    SVGPs (a rank of a parallel run other than 0)."""
     print(f"Running experiment for {dataset_name=} and {data_seed=}.")
     stages = Stages(device)
     data_path = os.path.join(outputs_path, str(data_seed), "data", dataset_name)
@@ -318,6 +385,8 @@ def main(
                 basis=pls.basis,
             )
         stages.done(f"{pls_name} step-size search")
+        if not writer:
+            continue
         for name, model in (
             (pls_name, pls),
             (f"{pls_name}-temper", TemperPLS(
@@ -350,7 +419,7 @@ def main(
         ),
     }
     for model_name, svgp_likelihood in svgp_variants.items():
-        if models_filter is not None and model_name not in models_filter:
+        if not writer or (models_filter is not None and model_name not in models_filter):
             continue
         svgp_path = os.path.join(models_path, f"{model_name}.pkl")
         if os.path.exists(svgp_path):
@@ -427,7 +496,12 @@ def parser() -> argparse.ArgumentParser:
 def cli(argv: list[str] | None = None) -> None:
     """The sweep over data seeds and datasets. A dataset that fails prints
     its traceback and the sweep goes on; each seed's tables are joined at
-    its end."""
+    its end (by rank 0 alone in a parallel run, whose group is destroyed at
+    the end). A config with ``pls.parallel`` runs one process a card under
+    ``torchrun --nproc-per-node D*P -m experiments_torch.uci.regression.main
+    ...``, or on CPU ranks under ``launch_cpu_ranks``. In a parallel run a
+    dataset that fails on one rank leaves the others waiting in a
+    collective: the launcher's time limit ends them."""
     args = parser().parse_args(argv)
     config = load_config(args.config_path)
     outputs_path = os.path.join(os.path.dirname(os.path.realpath(__file__)), args.outputs_dirname)
@@ -456,7 +530,10 @@ def cli(argv: list[str] | None = None) -> None:
                 # long sweep into an exit-0 run with empty outputs
                 print(f"Dataset {dataset_name} failed: {e}")
                 print(traceback.format_exc())
-        concatenate_seed(outputs_path, seed, dataset_names, MODEL_NAMES, METRICS)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            concatenate_seed(outputs_path, seed, dataset_names, MODEL_NAMES, METRICS)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -43,7 +43,7 @@ from experiments_torch.curves.mixture_likelihood import main as tmixture
 from experiments_torch.curves.poisson_regression import main as tpoisson
 from experiments_torch.curves.regression import main as tregression
 from experiments_torch.data import Data, ExperimentData, ProblemType
-from tests.torch_parity import to_np
+from tests.torch_parity import one_thread, to_np
 
 CURVE = 2
 MAINS = {
@@ -66,19 +66,6 @@ def cut(config, pls_seed=0):
     if "svgp" in config:
         config["svgp"].update(number_of_epochs=5, number_of_learning_rate_searches=2)
     return config
-
-
-@contextlib.contextmanager
-def one_thread():
-    """The port's main on one host thread: its steps are many small ops,
-    which the test workers' oversubscribed thread pools slow many times
-    over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def to_port(data) -> ExperimentData:

@@ -36,7 +36,7 @@ from experiments_torch.config import load_config
 from experiments_torch.loaders import load_pls
 from experiments_torch.metrics import concatenate_seed
 from experiments_torch.uci.classification import main as tmain
-from tests.torch_parity import to_np
+from tests.torch_parity import one_thread, to_np
 
 CONFIG = "experiments/uci/classification/config_precond_smooth.yaml"
 CUTS = {"kernel": dict(number_of_iterations=2, number_of_epochs=30, subsample_size=100),
@@ -47,19 +47,6 @@ RECORDED = ("construct_average_ard_kernel", "construct_average_mean_constant",
 SECTIONS = {"data": "data_config", "kernel": "kernel_config",
             "inducing_points": "inducing_points_config", "pls": "pls_config",
             "svgp": "svgp_config", "metrics": "metrics_config"}
-
-
-@contextlib.contextmanager
-def one_thread():
-    """The port's main on one host thread: its steps are many small ops,
-    which the test workers' oversubscribed thread pools slow many times
-    over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _cut(config):

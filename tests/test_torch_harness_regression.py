@@ -21,7 +21,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 import yaml
 
 from experiments import metrics as jmetrics
@@ -31,7 +30,7 @@ from experiments.uci.regression import main as jmain
 from experiments_torch.config import load_config
 from experiments_torch.metrics import concatenate_seed
 from experiments_torch.uci.regression import main as tmain
-from tests.torch_parity import to_np
+from tests.torch_parity import one_thread, to_np
 
 CONFIG = "experiments/uci/regression/config_precond_map.yaml"
 CUTS = {"kernel": dict(number_of_iterations=2, number_of_epochs=30, subsample_size=100),
@@ -40,19 +39,6 @@ CUTS = {"kernel": dict(number_of_iterations=2, number_of_epochs=30, subsample_si
 RECORDED = ("construct_average_ard_kernel", "construct_average_gaussian_likelihood_from_models",
             "construct_average_mean_constant", "estimate_student_parameters",
             "inducing_points_runner")
-
-
-@contextlib.contextmanager
-def one_thread():
-    """The port's main on one host thread: its steps are many small ops,
-    which the test workers' oversubscribed thread pools slow many times
-    over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _cut(config):

@@ -1,6 +1,7 @@
 """The PyTorch port, its experiment harness, its chip smoke script and the
-scripts that time it on the card import nothing of JAX (jax, flax, optax)
-and nothing of the JAX package; the harness also nothing of the JAX
+scripts that run it on the card import nothing of JAX (jax, flax, optax)
+and nothing of the JAX package; the harness (every module under
+``experiments_torch/``, slice 8's tools included) also nothing of the JAX
 harness, pandas, scikit-learn, matplotlib or yaml, which the card's machine
 lacks. An AST scan of every module."""
 
@@ -25,6 +26,8 @@ FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + HAR
     ROOT / "scripts" / "scale_out_cards.py",
     ROOT / "scripts" / "uci_pls_seeds.py",
     ROOT / "scripts" / "curve_mains.py",
+    ROOT / "scripts" / "slice8_tools.py",
+    ROOT / "scripts" / "parallel_main_cards.py",
 ]
 
 
@@ -79,5 +82,8 @@ def test_harness_has_the_slice_modules():
                    "curves/curves.py", "curves/common.py", "curves/regression/main.py",
                    "curves/classification/main.py", "curves/poisson_regression/main.py",
                    "curves/poisson_regression/study.py", "curves/mixture_likelihood/main.py",
-                   "curves/mixture_likelihood/summarise.py", "profiler/main.py"):
+                   "curves/mixture_likelihood/summarise.py", "profiler/main.py",
+                   "uci/fetch_datasets.py", "uci/regression/launch_cpu_ranks.py",
+                   "compare_onb_scaling.py", "audit_svgp.py",
+                   "uci/classification/analyse_gap.py"):
         assert f"experiments_torch/{module}" in names

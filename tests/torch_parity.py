@@ -5,6 +5,8 @@ fp64."""
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,19 @@ ELIGIBLE = {
     "student_t": "student_t",
     "multimodal": "multimodal_identity",
 }
+
+
+@contextlib.contextmanager
+def one_thread():
+    """The port's mains on one host thread: their steps are many small ops,
+    which the test workers' oversubscribed thread pools slow many times
+    over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def to_np(a) -> np.ndarray:
