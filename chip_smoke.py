@@ -59,7 +59,16 @@ each run with the launch counters set to 0 just before it and read just after:
   on two curves; and the regression main on config_parallel's protocol on a
   1 x 1 mesh over a world-size-1 NCCL group, whose pls* metric files equal
   the same main's without the mesh bit for bit. B1 is held to its plain
-  version on each shape's first call.
+  version on each shape's first call;
+- slice 9 (phase 16), the results pipeline: the regression main on
+  diabetes_sklearn and the classification main on wine_uci over data seeds
+  0-2 (pls-onb and svgp, the real short configs, fp64;
+  ``scripts/results_cards.py``'s ``run_main``), then ``aggregate_seeds``
+  (n = 3 in every test cell) and ``make_results_summary`` over their trees:
+  both sets in the head-to-head and the real-data rollup, every per-seed
+  value back exactly from the long CSV, the same tables from the long CSV
+  alone, and pls-onb's per-seed test MSE and accuracy inside phase 15's
+  limits.
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
 tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
@@ -1512,8 +1521,8 @@ def b2_backward_check(pt, gram, x_sub, z, x_train):
 
 
 def b2_backward_keys(launches_11, backward_harness):
-    """B2's backward on the slice 4, 6 and 7 paths: the passes the fits ran
-    (phases 11, 13 and 14), and the time of one backward at the exact GP's gram
+    """B2's backward on the slice 4 and 6-9 paths: the passes the fits ran
+    (phases 11 and 13-16), and the time of one backward at the exact GP's gram
     (5000 x 5000 same-input, fp64) beside the plain version's autograd."""
     backward_ms, plain_ms = launches_11["backward_ms"][(torch.float64, "same")]
     return {"backward_launches": launches_11["backward"] + backward_harness,
@@ -2590,6 +2599,139 @@ def phase_slice8(counters):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 16: slice 9, the results pipeline over the UCI mains on real data
+# --------------------------------------------------------------------------
+# the mains of scripts/results_cards.py (its real short configs), on one real
+# set each, over three data seeds: the regression main restricted to pls-onb
+# and svgp, what the head-to-head and the real-data rollup need; the
+# classification main, which has no models filter (as in the JAX package),
+# runs all its models
+SETS16, SEEDS16 = {"regression": "diabetes_sklearn", "classification": "wine_uci"}, (0, 1, 2)
+MODELS16 = ("pls-onb", "svgp")
+METRICS16 = {"regression": ("mae", "mse", "nll"), "classification": ("acc", "auc", "f1", "nll")}
+
+
+def phase_results(counters, smi):
+    """(a) The regression main on diabetes_sklearn and the classification
+    main on wine_uci over data seeds 0-2 on the card, into a fresh root
+    (``scripts/results_cards.py``'s ``run_main``); (b) ``aggregate_seeds``
+    over both trees, n = 3 in every test cell; (c) ``make_results_summary``
+    over the root: both sets named in the head-to-head and the rollup, the
+    long CSV giving back every per-seed value exactly, the tables rendered
+    from the long CSV alone equal to those from the tree, and pls-onb's
+    per-seed test MSE and accuracy inside phase 15's limits."""
+    import tempfile
+
+    from experiments_torch import aggregate_seeds, make_results_summary
+    from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram
+
+    cards = runpy.run_path(os.path.join(ROOT, "scripts", "results_cards.py"))
+    require({m: cards["MAINS"][m]["config"] for m in SETS16}
+            == {m: CONFIGS15[m][1] for m in SETS16},
+            "results_cards.py's configs are phase 15's real short configs")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_results_")
+    try:
+        datasets = os.path.join(tmp, "datasets")
+        cards["write_datasets"](datasets)
+
+        # (a) the mains, counted
+        def mains():
+            records = []
+            for main_name, dataset in SETS16.items():
+                for seed in SEEDS16:
+                    records.append(cards["run_main"](
+                        main_name, dataset, seed, tmp, datasets, "cuda",
+                        models=set(MODELS16) if main_name == "regression" else None))
+            return records
+
+        ARDGram.backward_calls = 0
+        records, seconds, launches = run_counted(counters, mains)
+        launches["backward"] = ARDGram.backward_calls
+        for r in records:
+            log(f"  (a) {r['main']} {r['dataset']} seed {r['seed']}: {r['seconds']:.1f} s, "
+                f"B1 {r['b1_launches']}, B2 {r['b2_launches']}, step size {r['step_size']}")
+        require(launches["spectral"] >= len(SEEDS16) and launches["gram"] >= 1
+                and launches["backward"] >= 1,
+                f"phase 16's mains: B1 {launches['spectral']}, B2 {launches['gram']}, "
+                f"B2 backward passes {launches['backward']}")
+        values = {}
+        for main_name, dataset in SETS16.items():
+            tree = cards["tree"](tmp, main_name)
+            for seed in SEEDS16:
+                for model in MODELS16:
+                    for metric in METRICS16[main_name]:
+                        for split in ("train", "test"):
+                            path = os.path.join(tree, str(seed), "results", dataset, model,
+                                                f"{metric}_{split}.csv")
+                            require(os.path.exists(path), f"the main wrote no {path}")
+                            with open(path) as f:
+                                cell = f.read().splitlines()[1].split(",")[1]
+                            values[(main_name, split, dataset, model, metric, seed)] = \
+                                math.nan if cell == "" else float(cell)
+        for seed in SEEDS16:
+            mse = values[("regression", "test", SETS16["regression"], "pls-onb", "mse", seed)]
+            acc = values[("classification", "test", SETS16["classification"], "pls-onb", "acc",
+                          seed)]
+            require(mse < MSE_MAX15, f"seed {seed}: pls-onb test MSE {mse} >= {MSE_MAX15}")
+            require(acc > ACCURACY_MIN15["wine_uci"],
+                    f"seed {seed}: pls-onb test accuracy {acc} <= {ACCURACY_MIN15['wine_uci']}")
+            require(all(math.isfinite(v) for k, v in values.items() if k[-1] == seed),
+                    f"seed {seed}: a metric is not finite")
+
+        # (b) aggregate_seeds: every (dataset, model, metric) over the three seeds
+        for main_name in SETS16:
+            long = aggregate_seeds.collect(cards["tree"](tmp, main_name), "test")
+            cells = aggregate_seeds.grouped(long, ("dataset", "model", "metric"))
+            require({(SETS16[main_name], m, k) for m in MODELS16 for k in METRICS16[main_name]}
+                    <= set(cells) and all(len(v) == len(SEEDS16) for v in cells.values()),
+                    f"{main_name}: cells {[(k, len(v)) for k, v in cells.items()]}")
+            log(f"  (b) {main_name}: {len(cells)} (dataset, model, metric) cells, n = "
+                f"{len(SEEDS16)} each\n" + aggregate_seeds.render(long, ["nll"]))
+
+        # (c) make_results_summary over the root
+        out = os.path.join(tmp, "summary", "RESULTS.md")
+        text = make_results_summary.main(["--root", tmp, "--out", out, "--provenance",
+                                          f"{smi}, chip_smoke.py phase 16"])
+        sections = text.split("\n## ")
+        for task, dataset in SETS16.items():
+            head = [s for s in sections if s.startswith(
+                f"PLS vs SVGP head-to-head (headline {task} protocol, test split)")]
+            require(len(head) == 1 and f"| {dataset} |" in head[0],
+                    f"the {task} head-to-head names no {dataset}")
+        rollup = make_results_summary.real_data_rollup_section(tmp)
+        require(rollup and rollup in text and all(
+            f"| {d} |" in rollup for d in SETS16.values()), "the rollup names both sets")
+        long_csv = os.path.join(tmp, "summary", "uci_metrics_long.csv")
+        rows = aggregate_seeds.read_metrics_long(long_csv)
+        require(len(rows) >= len(values), f"the long CSV holds {len(rows)} rows")
+        exact = 0
+        for task, _, split, dataset, model, metric, seed, value in rows:
+            key = (task, split, dataset, model, metric, seed)
+            if key in values:
+                require(value == values[key] or (math.isnan(value) and math.isnan(values[key])),
+                        f"long CSV {key}: {value!r} against the per-seed file's "
+                        f"{values[key]!r}")
+                exact += 1
+        require(exact == len(values), f"{exact} of {len(values)} per-seed values in the long CSV")
+        empty = os.path.join(tmp, "empty")
+        require(make_results_summary.real_data_rollup_section(empty, long_csv) == rollup,
+                "the rollup from the long CSV alone differs from the tree's")
+        for task in SETS16:
+            require(aggregate_seeds.render(aggregate_seeds.collect(
+                os.path.join(empty, "uci", task, cards["MAINS"][task]["protocol"]), "test",
+                long_csv)) == aggregate_seeds.render(aggregate_seeds.collect(
+                    cards["tree"](tmp, task), "test")),
+                f"{task}: the tables from the long CSV alone differ from the tree's")
+        log(f"  (c) the summary ({len(text.splitlines())} lines) names both sets; the long CSV "
+            f"gives back all {exact} per-seed values exactly; the rollup and both tables "
+            "render the same from the long CSV alone\n" + rollup)
+        log(f"  phase 16's mains: {seconds:.1f} s; launches {launches}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2691,26 +2833,29 @@ def main() -> int:
     launches_15 = phase("phase 15: slice 8, the UCI mains on the real sklearn-bundled sets, the "
                         "gap attribution, the SVGP audit, the ONB scalings and the parallel "
                         "regression main on a 1 x 1 mesh, fp64, depth cut", phase_slice8, counters)
+    launches_16 = phase("phase 16: slice 9, the results pipeline over the UCI mains on "
+                        "diabetes_sklearn and wine_uci, data seeds 0-2, fp64, depth cut",
+                        phase_results, counters, smi)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/spectral_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/spectral_train.py:120",
-         # the slice 1 path's launches and the harnesses' (phases 13-15)
+         # the slice 1 path's launches and the harnesses' (phases 13-16)
          "launches": (launches["spectral"] + launches_13["spectral"] + launches_14["spectral"]
-                      + launches_15["spectral"]),
+                      + launches_15["spectral"] + launches_16["spectral"]),
          "library_ms": None,
          "matched": True, **spec_res},
         {"name": "ard_gram", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/gram.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
          # the slice 1 path's launches, the slice 4 path's (phase 11) and the
-         # harnesses' (phases 13-15)
+         # harnesses' (phases 13-16)
          "launches": (launches["gram"] + launches_11["gram"] + launches_13["gram"]
-                      + launches_14["gram"] + launches_15["gram"]),
+                      + launches_14["gram"] + launches_15["gram"] + launches_16["gram"]),
          "library_ms": None, "matched": True, **gram_res,
          **b2_backward_keys(launches_11, launches_13["backward"] + launches_14["backward"]
-                            + launches_15["backward"])},
+                            + launches_15["backward"] + launches_16["backward"])},
         {"name": "general_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/general_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/general_train.py:307",

@@ -21,11 +21,13 @@ the per-point NLL gap comes from:
 
 Validation gate: a row counts only if its recomputed test NLLs match what
 the main recorded for the same checkpoints, for both models, within
-``--tolerance`` nats (default 1e-3). The JAX script reads the recorded NLLs
-from ``results/uci_metrics_long.csv``, which ``make_results_summary`` writes;
-that module is not ported yet, so this reads the main's own per-seed
-``<seed>/results/<dataset>/<model>/nll_test.csv``, the numbers that long
-CSV is made from. The port's checkpoints carry their basis, so they
+``--tolerance`` nats (default 1e-3). As the JAX script reads them from the
+consolidated ``results/uci_metrics_long.csv``, this reads them from the long
+CSV ``experiments_torch.make_results_summary`` writes, given as
+``--metrics_long`` (the rows of this task, the tree's protocol, the test
+split); without one, or for a row that CSV lacks, from the main's own
+per-seed ``<seed>/results/<dataset>/<model>/nll_test.csv``, the numbers that
+long CSV is made from. The port's checkpoints carry their basis, so they
 validate on any device; ``--resave`` upgrades a validated checkpoint that
 carries none.
 
@@ -49,6 +51,7 @@ import pickle
 import numpy as np
 import torch
 
+from experiments_torch.aggregate_seeds import parse_value, read_metrics_long
 from experiments_torch.config import load_config
 from experiments_torch.constructors import construct_average_ard_kernel
 from experiments_torch.data import ExperimentData, ProblemType
@@ -286,8 +289,16 @@ def analyse(base: str, dataset: str, seed: int, config: dict, device="cuda",
     return out, resave_ctx
 
 
-def recorded_nll(base: str, dataset: str, seed: int, model: str) -> float:
-    """The test NLL the main wrote for (dataset, seed, model); NaN if none."""
+def recorded_nll(base: str, dataset: str, seed: int, model: str,
+                 metrics_long: str | None = None) -> float:
+    """The test NLL the main recorded for (dataset, seed, model): the long
+    CSV's row of the tree's protocol when ``metrics_long`` has one, else the
+    main's per-seed file; NaN if neither has it."""
+    if metrics_long is not None:
+        protocol = os.path.basename(os.path.normpath(base))
+        for r in read_metrics_long(metrics_long):
+            if r[:7] == ("classification", protocol, "test", dataset, model, "nll", seed):
+                return r[7]
     path = os.path.join(base, str(seed), "results", dataset, model, "nll_test.csv")
     if not os.path.exists(path):
         return float("nan")
@@ -299,12 +310,12 @@ def recorded_nll(base: str, dataset: str, seed: int, model: str) -> float:
     return float("nan")
 
 
-def gate(row: dict, base: str, tolerance: float) -> dict:
+def gate(row: dict, base: str, tolerance: float, metrics_long: str | None = None) -> dict:
     """The row with the recorded NLLs and its ``validated`` flag: both
     recomputed NLLs within ``tolerance`` of the recorded ones (a NaN never
     validates)."""
-    row["pls_nll_recorded"] = recorded_nll(base, row["dataset"], row["seed"], "pls-onb")
-    row["svgp_nll_recorded"] = recorded_nll(base, row["dataset"], row["seed"], "svgp")
+    for model, key in (("pls-onb", "pls_nll_recorded"), ("svgp", "svgp_nll_recorded")):
+        row[key] = recorded_nll(base, row["dataset"], row["seed"], model, metrics_long)
     row["validated"] = bool(abs(row["pls_nll"] - row["pls_nll_recorded"]) <= tolerance
                             and abs(row["svgp_nll"] - row["svgp_nll_recorded"]) <= tolerance)
     return row
@@ -319,27 +330,13 @@ def _cell(value) -> str:
     return repr(value) if isinstance(value, float) else str(value)
 
 
-def _parse(value: str):
-    if value in ("True", "False"):
-        return value == "True"
-    if value == "":
-        return float("nan")
-    try:
-        return int(value)
-    except ValueError:
-        try:
-            return float(value)
-        except ValueError:
-            return value
-
-
 def read_rows(path: str) -> list[dict]:
     """The rows of a report's CSV; none if it is missing or predates the
     gate (no ``validated`` column)."""
     if not os.path.exists(path):
         return []
     with open(path, newline="") as f:
-        rows = [{k: _parse(v) for k, v in r.items()} for r in csv.DictReader(f)]
+        rows = [{k: parse_value(v) for k, v in r.items()} for r in csv.DictReader(f)]
     return rows if rows and "validated" in rows[0] else []
 
 
@@ -426,7 +423,7 @@ def resave(ctx: dict) -> bool:
 
 def run(base: str, datasets: list[str], seeds: list[int], config: dict, report: str,
         tolerance: float = 1e-3, do_resave: bool = False, device="cuda",
-        dtype: torch.dtype = torch.float64) -> list[dict]:
+        dtype: torch.dtype = torch.float64, metrics_long: str | None = None) -> list[dict]:
     """Probe every (dataset, seed) with saved models; the rows (merged with
     the report CSV's earlier rows) go to the CSV after each probe and to the
     report at the end. Returns this run's rows."""
@@ -441,7 +438,7 @@ def run(base: str, datasets: list[str], seeds: list[int], config: dict, report: 
             except FileNotFoundError as e:
                 print(f"skip {dataset}/{seed}: {e}")
                 continue
-            gate(row, base, tolerance)
+            gate(row, base, tolerance, metrics_long)
             if not row["validated"]:
                 print(f"  [validate] {dataset}/{seed} FAILED: probe pls {row['pls_nll']:.4f} vs "
                       f"recorded {row['pls_nll_recorded']:.4f}, svgp {row['svgp_nll']:.4f} vs "
@@ -482,12 +479,14 @@ def main(argv: list[str] | None = None) -> int:
                         help="validation-gate tolerance in nats")
     parser.add_argument("--resave", action="store_true",
                         help="give each validated checkpoint that carries no basis its basis")
+    parser.add_argument("--metrics_long", default=None,
+                        help="the long CSV make_results_summary wrote (the recorded NLLs)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--dtype", default="float64", choices=("float64", "float32"))
     args = parser.parse_args(argv)
     rows = run(os.path.join(HERE, args.outputs_dirname), args.datasets, args.seeds,
                load_config(args.config_path), args.report, args.tolerance, args.resave,
-               args.device, getattr(torch, args.dtype))
+               args.device, getattr(torch, args.dtype), args.metrics_long)
     return 0 if rows and all(r["validated"] for r in rows) else 1
 
 

@@ -1,9 +1,10 @@
 """The PyTorch port, its experiment harness, its chip smoke script and the
 scripts that run it on the card import nothing of JAX (jax, flax, optax)
 and nothing of the JAX package; the harness (every module under
-``experiments_torch/``, slice 8's tools included) also nothing of the JAX
-harness, pandas, scikit-learn, matplotlib or yaml, which the card's machine
-lacks. An AST scan of every module."""
+``experiments_torch/``, slice 8's tools and slice 9's results pipeline
+included) and the script that runs the pipeline on the card also nothing of
+the JAX harness, pandas, tabulate, scikit-learn, matplotlib or yaml, which
+the card's machine lacks. An AST scan of every module."""
 
 import ast
 import pathlib
@@ -12,8 +13,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "projected_langevin_sampling_tpu"}
-HARNESS_FORBIDDEN = FORBIDDEN | {"experiments", "pandas", "sklearn", "matplotlib", "yaml"}
-HARNESS = sorted((ROOT / "experiments_torch").rglob("*.py"))
+HARNESS_FORBIDDEN = FORBIDDEN | {"experiments", "pandas", "tabulate", "sklearn", "matplotlib",
+                                 "yaml"}
+HARNESS = sorted((ROOT / "experiments_torch").rglob("*.py")) + [
+    ROOT / "scripts" / "results_cards.py"]
 FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + HARNESS + [
     ROOT / "chip_smoke.py",
     ROOT / "examples" / "readme_demo_torch.py",
@@ -85,5 +88,7 @@ def test_harness_has_the_slice_modules():
                    "curves/mixture_likelihood/summarise.py", "profiler/main.py",
                    "uci/fetch_datasets.py", "uci/regression/launch_cpu_ranks.py",
                    "compare_onb_scaling.py", "audit_svgp.py",
-                   "uci/classification/analyse_gap.py"):
+                   "uci/classification/analyse_gap.py", "aggregate_seeds.py",
+                   "make_results_summary.py"):
         assert f"experiments_torch/{module}" in names
+    assert "scripts/results_cards.py" in names
