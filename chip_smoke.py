@@ -2732,6 +2732,55 @@ def phase_results(counters, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 17: slice 10, the graphed training runs against their eager form
+# --------------------------------------------------------------------------
+def phase_graph_runs():
+    """The training runs that loop over steps on the host through
+    ``scripts/graph_runs.py``, at the UCI mains' shapes, fp64: each graphed
+    run (one step captured into a CUDA graph, replayed in chunks) against
+    the eager runner on the same inputs and generator, bit for bit, with its
+    ms a step, host syncs and launch calls both ways; and B2 with its
+    outputscale read on the device against the same gram from a host value.
+    The exact GP, the Dirichlet GP, the SVGP and the two ``off`` tiers; a
+    run that stops inside a chunk and one that stops on a NaN."""
+    from projected_langevin_sampling_torch.ops.cuda.gram import ard_gram_scaled
+    from projected_langevin_sampling_torch.utils import early_stopper
+
+    x = torch.randn(517, 8, dtype=torch.float64, device="cuda")
+    scale = torch.tensor(1.37, dtype=torch.float64, device="cuda")
+    same = ard_gram_scaled(x, x, scale, same=True)
+    require(torch.equal(same, ard_gram_scaled(x, x, 1.37, same=True))
+            and torch.equal(ard_gram_scaled(x, x[:300], scale),
+                            ard_gram_scaled(x, x[:300], 1.37)),
+            "B2 with its outputscale on the device differs from the host value's gram")
+    log("  B2 with the outputscale read on the device: bit for bit the host value's gram")
+    runs = runpy.run_path(os.path.join(ROOT, "scripts", "graph_runs.py"))
+    results = runs["hold_all"]("cuda", log=log)
+    chunk = early_stopper.CHECK_EVERY
+    for r in results:
+        g, e = r["graph"], r["eager"]
+        require(r["bitwise"], f"{r['name']}: the graphed run differs from its eager form")
+        require(g["mode"] == "graph" and g["captures"] >= 1 and e["mode"] == "eager",
+                f"{r['name']}: forms {g['mode']} ({g['captures']} captures), {e['mode']}")
+        require(g["host_syncs"] == e["host_syncs"] == -(-g["steps_launched"] // chunk),
+                f"{r['name']}: {g['host_syncs']} host syncs for {g['steps_launched']} steps")
+        require(r["counters_agree"], f"{r['name']}: B2 counted {g['counters']} graphed, "
+                f"{e['counters']} eager")
+        require(g["launches"] is None or e["launches"] is None or g["launches"] < e["launches"],
+                f"{r['name']}: {g['launches']} launch calls graphed, {e['launches']} eager")
+    by_name = {r["name"]: r for r in results}
+    stop = by_name["stop inside a chunk"]["graph"]
+    # it stops at epoch `recorded` (that epoch's loss is not recorded): not a
+    # chunk's last epoch, and before the run's end
+    require(0 < stop["recorded"] and stop["recorded"] % chunk != chunk - 1
+            and stop["steps_launched"] < by_name["stop inside a chunk"]["steps"],
+            f"the stopping run recorded {stop['recorded']} epochs in {stop['steps_launched']}")
+    nan = by_name["stop on a NaN"]["graph"]
+    require(nan["recorded"] < by_name["stop on a NaN"]["steps"], "the NaN run did not stop")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2836,6 +2885,9 @@ def main() -> int:
     launches_16 = phase("phase 16: slice 9, the results pipeline over the UCI mains on "
                         "diabetes_sklearn and wine_uci, data seeds 0-2, fp64, depth cut",
                         phase_results, counters, smi)
+    phase("phase 17: slice 10, the graphed training runs (exact GP, Dirichlet GP, SVGP, the "
+          "Student-T and smoothed-Bernoulli off tiers, a stop inside a chunk and on a NaN) "
+          "against their eager form, fp64", phase_graph_runs)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",

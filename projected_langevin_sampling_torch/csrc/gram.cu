@@ -31,6 +31,10 @@
 // VEC), else scalar stores. It refuses N1 beyond 65535 tiles of TILE_ROWS
 // rows, the limit of gridDim.y.
 //
+// The outputscale is a host value, or, where `scale` is not null, the scalar
+// at that device address: a GP's fitted outputscale is a tensor on the card,
+// and a captured CUDA graph replays its launch with the value of each step.
+//
 // Precision: the cross term runs in true fp32 or fp64 on the CUDA cores (no
 // tensor-core path, so no TF32). The distance is assembled with explicitly
 // rounded adds and multiplies in the order the plain PyTorch expression uses,
@@ -81,7 +85,9 @@ __device__ __forceinline__ T gram_value(T n1, T n2, T cross, T outputscale, bool
 template <typename T, int MAXD>
 __global__ void __launch_bounds__(COL_THREADS * ROW_THREADS)
 ard_gram_register_kernel(const T* __restrict__ x1, const T* __restrict__ x2, T* __restrict__ out,
-                         int n1, int n2, int d, T outputscale, int same, int vector_store) {
+                         int n1, int n2, int d, T outputscale, const T* __restrict__ scale,
+                         int same, int vector_store) {
+  if (scale != nullptr) outputscale = *scale;
   constexpr int VEC = 16 / sizeof(T);
   const int c0 = (blockIdx.x * COL_THREADS + threadIdx.x) * VEC;
   if (c0 >= n2) return;
@@ -141,7 +147,9 @@ ard_gram_register_kernel(const T* __restrict__ x1, const T* __restrict__ x2, T* 
 template <typename T>
 __global__ void __launch_bounds__(STAGED_COLS * ROW_THREADS)
 ard_gram_staged_kernel(const T* __restrict__ x1, const T* __restrict__ x2, T* __restrict__ out,
-                       int n1, int n2, int d, T outputscale, int same) {
+                       int n1, int n2, int d, T outputscale, const T* __restrict__ scale,
+                       int same) {
+  if (scale != nullptr) outputscale = *scale;
   extern __shared__ unsigned char smem_raw[];
   T* s1 = reinterpret_cast<T*>(smem_raw);  // (TILE_ROWS, d)
   T* s2 = s1 + TILE_ROWS * d;              // (STAGED_COLS, d)
@@ -194,7 +202,7 @@ ard_gram_staged_kernel(const T* __restrict__ x1, const T* __restrict__ x2, T* __
 
 template <typename T>
 int launch(const void* x1, const void* x2, void* out, int n1, int n2, int d, double outputscale,
-           int same, void* stream) {
+           const void* scale_ptr, int same, void* stream) {
   if (n1 <= 0 || n2 <= 0) return 0;
   constexpr int VEC = 16 / sizeof(T);
   const bool registers = d <= REGISTER_D;
@@ -207,14 +215,15 @@ int launch(const void* x1, const void* x2, void* out, int n1, int n2, int d, dou
   const T* a = static_cast<const T*>(x1);
   const T* b = static_cast<const T*>(x2);
   T* o = static_cast<T*>(out);
+  const T* scale = static_cast<const T*>(scale_ptr);
   if (registers) {
     const dim3 block(COL_THREADS, ROW_THREADS);
     if (d == 1) {
       ard_gram_register_kernel<T, 1><<<grid, block, 0, s>>>(
-          a, b, o, n1, n2, d, static_cast<T>(outputscale), same, vector_store);
+          a, b, o, n1, n2, d, static_cast<T>(outputscale), scale, same, vector_store);
     } else {
       ard_gram_register_kernel<T, REGISTER_D><<<grid, block, 0, s>>>(
-          a, b, o, n1, n2, d, static_cast<T>(outputscale), same, vector_store);
+          a, b, o, n1, n2, d, static_cast<T>(outputscale), scale, same, vector_store);
     }
   } else {
     const size_t smem =
@@ -225,7 +234,7 @@ int launch(const void* x1, const void* x2, void* out, int n1, int n2, int d, dou
       if (err != cudaSuccess) return (int)err;
     }
     ard_gram_staged_kernel<T><<<grid, dim3(STAGED_COLS, ROW_THREADS), smem, s>>>(
-        a, b, o, n1, n2, d, static_cast<T>(outputscale), same);
+        a, b, o, n1, n2, d, static_cast<T>(outputscale), scale, same);
   }
   return (int)cudaGetLastError();
 }
@@ -233,11 +242,13 @@ int launch(const void* x1, const void* x2, void* out, int n1, int n2, int d, dou
 }  // namespace
 
 extern "C" int plst_ard_gram_f32(const void* x1, const void* x2, void* out, int n1, int n2,
-                                 int d, double outputscale, int same, void* stream) {
-  return launch<float>(x1, x2, out, n1, n2, d, outputscale, same, stream);
+                                 int d, double outputscale, const void* scale, int same,
+                                 void* stream) {
+  return launch<float>(x1, x2, out, n1, n2, d, outputscale, scale, same, stream);
 }
 
 extern "C" int plst_ard_gram_f64(const void* x1, const void* x2, void* out, int n1, int n2,
-                                 int d, double outputscale, int same, void* stream) {
-  return launch<double>(x1, x2, out, n1, n2, d, outputscale, same, stream);
+                                 int d, double outputscale, const void* scale, int same,
+                                 void* stream) {
+  return launch<double>(x1, x2, out, n1, n2, d, outputscale, scale, same, stream);
 }

@@ -60,16 +60,17 @@ class ExactGP:
         mean = self.mean_constant * torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
         return mean, self.kernel(x)
 
-    def _train_factor(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def _train_factor(self, factor=nan_rescued_cholesky) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean at x_train, Cholesky factor of K + noise)."""
         mean, k = self.prior(self.x_train)
-        return mean, nan_rescued_cholesky(k + torch.diag(self._noise_diag()))
+        return mean, factor(k + torch.diag(self._noise_diag()))
 
-    def log_marginal_likelihood(self) -> torch.Tensor:
+    def log_marginal_likelihood(self, factor=nan_rescued_cholesky) -> torch.Tensor:
         """log p(y | X), the exact MLL (gpytorch's ExactMarginalLogLikelihood
-        times N)."""
+        times N). ``factor`` computes the Cholesky factor of K + noise; the
+        graphed fit passes one that reads nothing on the host."""
         n = self.y_train.shape[0]
-        mean, chol = self._train_factor()
+        mean, chol = self._train_factor(factor)
         resid = (self.y_train - mean)[:, None]
         alpha = torch.cholesky_solve(resid, chol)
         logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol)))

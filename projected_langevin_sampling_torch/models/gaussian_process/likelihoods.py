@@ -31,12 +31,24 @@ from projected_langevin_sampling_torch.models.distributions import (
 _GH_POINTS = 20
 
 
+_GH_RULES: dict = {}
+
+
+def _gh_rule(dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quadrature's nodes and normalised weights on ``device``, copied
+    there once: a copy from the host cannot be captured in a CUDA graph."""
+    key = (dtype, device)
+    if key not in _GH_RULES:
+        nodes, weights = np.polynomial.hermite.hermgauss(_GH_POINTS)
+        _GH_RULES[key] = (torch.as_tensor(nodes, dtype=dtype, device=device),
+                          torch.as_tensor(weights / np.sqrt(np.pi), dtype=dtype, device=device))
+    return _GH_RULES[key]
+
+
 def _gauss_hermite(mean_f: torch.Tensor, var_f: torch.Tensor, log_prob_fn) -> torch.Tensor:
     """E_{f ~ N(mean_f, var_f)}[log_prob_fn(f)] per data point, by
     Gauss-Hermite quadrature (physicists' nodes)."""
-    nodes, weights = np.polynomial.hermite.hermgauss(_GH_POINTS)
-    nodes = torch.as_tensor(nodes, dtype=mean_f.dtype, device=mean_f.device)
-    weights = torch.as_tensor(weights / np.sqrt(np.pi), dtype=mean_f.dtype, device=mean_f.device)
+    nodes, weights = _gh_rule(mean_f.dtype, mean_f.device)
     f = mean_f[:, None] + torch.sqrt(2.0 * var_f)[:, None] * nodes[None, :]  # (N, Q)
     return torch.sum(log_prob_fn(f) * weights[None, :], dim=1)
 

@@ -4,51 +4,48 @@ reference's ``experiments/trainers.py:15-136``): Adam on the exact MLL, SGD
 on the minibatched variational ELBO, with optional frozen kernel and noise
 parameters.
 
-Eager torch loops, one optimiser step a batch. Positive parameters
-(lengthscales, outputscale, noise) are fitted in log-space, and both losses
-are per data point, as gpytorch's. On the card every gram and its gradient
-go through B2 (``ops/cuda/gram.py``). Each trainer keeps its reference's
-stopper exactly: the exact-GP stopper discards the stopping epoch's update
-(``trainers.py:36-44``), the SVGP stopper adopts it (``:117-130``), neither
-records the stopping loss, and non-finite SVGP parameters return
-``(None, None)`` (``:131-134``). The JAX package's ``_drain_chunks`` bounds
-the length of a TPU device program and has no counterpart here.
+Each fit is one run of ``utils/early_stopper.run_training``, the counterpart
+of the JAX package's jitted ``lax.scan`` with the stopper as scan state: on
+the card one epoch (the exact GP's step, or the SVGP's minibatch steps, its
+remainder batch and its full-data loss) is captured into a CUDA graph and
+replayed, and the host reads the stop flag once a chunk of epochs, as the
+JAX ``_drain_chunks`` does; on the CPU the same epoch runs eagerly. Positive
+parameters (lengthscales, outputscale, noise) are fitted in log-space, and
+both losses are per data point, as gpytorch's. On the card every gram and
+its gradient go through B2 (``ops/cuda/gram.py``). Each trainer keeps its
+reference's stopper exactly: the exact-GP stopper discards the stopping
+epoch's update (``trainers.py:36-44``), the SVGP stopper adopts it
+(``:117-130``), neither records the stopping loss, and non-finite SVGP
+parameters return ``(None, None)`` (``:131-134``). Adam and SGD are optax's
+updates written as tensor ops, so the optimiser state is part of the run's
+state and a discarded update drops it with ``torch.where``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
+import numpy as np
 import torch
 
 from projected_langevin_sampling_torch.models.gaussian_process.exact_gp import ExactGP
 from projected_langevin_sampling_torch.models.gaussian_process.svgp import SVGP
 from projected_langevin_sampling_torch.ops.kernels import ARDKernel, PLSKernel, _as_2d
+from projected_langevin_sampling_torch.ops.linalg import (
+    _all_finite,
+    _cholesky_or_nan,
+    ladder_cholesky,
+)
 from projected_langevin_sampling_torch.utils.device import as_tensor
+from projected_langevin_sampling_torch.utils.early_stopper import run_training, take
 from projected_langevin_sampling_torch.utils.prng import GeneratorLike, as_generator
 
+# optax.adam's defaults (b1, b2, eps; eps_root 0)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
-class _Stopper:
-    """The reference trainers' early stopper on the per-data-point loss:
-    stop on a non-finite loss, or once the loss has not improved for
-    ``patience`` of simulated time (``learning_rate`` an epoch)."""
 
-    def __init__(self, learning_rate: float, patience: float):
-        self.learning_rate = float(learning_rate)
-        self.patience = float(patience)
-        self.min_loss = math.inf
-        self.sim_time = 0.0
-
-    def should_stop(self, loss: float) -> bool:
-        improved = loss < self.min_loss
-        sim_time = 0.0 if improved else self.sim_time + self.learning_rate
-        if not math.isfinite(loss) or (not improved and sim_time >= self.patience):
-            return True
-        if improved:
-            self.min_loss = loss
-        self.sim_time = sim_time
-        return False
+def _recorded_losses(run) -> list[float]:
+    return [float(e) for e, r in zip(run.energies.tolist(), run.recorded.tolist()) if r]
 
 
 # --------------------------------------------------------------------------
@@ -68,15 +65,25 @@ def _exact_gp_from_params(params, x, y, fixed_noise_variances=None) -> ExactGP:
     )
 
 
-def _leaves(values: dict, trainable=lambda name: True) -> dict:
-    """Detached copies of ``values``, the trainable ones requiring grad."""
-    return {
-        name: v.detach().clone().requires_grad_(trainable(name)) for name, v in values.items()
-    }
-
-
 def _detached(params: dict) -> dict:
     return {name: v.detach() for name, v in params.items()}
+
+
+_EXACT_PARAMS = ("mean_constant", "log_lengthscales", "log_outputscale", "log_noise")
+
+
+def _adam(params, grads, mu, nu, count, learning_rate: float):
+    """One step of optax.adam: the moments, their bias corrections at step
+    ``count + 1`` and ``p - lr m_hat / (sqrt(v_hat) + eps)``."""
+    count = count + 1.0
+    mu = tuple((1.0 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, mu))
+    nu = tuple((1.0 - ADAM_B2) * g**2 + ADAM_B2 * v for g, v in zip(grads, nu))
+    c1, c2 = 1.0 - ADAM_B1**count, 1.0 - ADAM_B2**count
+    params = tuple(
+        p + (-learning_rate) * ((m / c1) / (torch.sqrt(v / c2) + ADAM_EPS))
+        for p, m, v in zip(params, mu, nu)
+    )
+    return params, mu, nu, count
 
 
 def fit_exact_gp(
@@ -94,7 +101,12 @@ def fit_exact_gp(
     ``trainers.py:15-52``), on the kernel's device. Returns the fitted GP and
     the recorded losses. ``fixed_noise_variances``: per-point noise added to
     the learned scalar (the Dirichlet classification case, gpytorch's
-    ``FixedNoiseGaussianLikelihood(learn_additional_noise=True)``)."""
+    ``FixedNoiseGaussianLikelihood(learn_additional_noise=True)``).
+
+    An epoch factors K + noise once. Where that factor is not finite, the
+    epoch defers and the rest of the run takes :func:`ladder_cholesky`, the
+    escalating jitter of ``nan_rescued_cholesky`` as data flow: the same
+    numbers, at the ladder's price only where the plain factor fails."""
     device = kernel.device
     x = _as_2d(as_tensor(x, device=device))
     y = as_tensor(y, device=device)
@@ -102,27 +114,44 @@ def fit_exact_gp(
     if fixed_noise_variances is not None:
         fixed_noise_variances = as_tensor(fixed_noise_variances, device=device, dtype=dtype)
     as_param = lambda v: torch.as_tensor(v, dtype=dtype, device=device)  # noqa: E731
-    params = _leaves({
-        "mean_constant": as_param(mean_constant),
-        "log_lengthscales": torch.log(as_param(kernel.lengthscales)),
-        "log_outputscale": torch.log(as_param(kernel.outputscale)),
-        "log_noise": torch.log(as_param(noise)),
-    })
-    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate)
-    stopper = _Stopper(learning_rate, early_stopper_patience)
-    losses: list[float] = []
+    params = (
+        as_param(mean_constant),
+        torch.log(as_param(kernel.lengthscales)),
+        torch.log(as_param(kernel.outputscale)),
+        torch.log(as_param(noise)),
+    )
+    params = tuple(p.detach().clone().requires_grad_() for p in params)
     n = y.shape[0]
-    for _ in range(int(number_of_epochs)):
-        optimizer.zero_grad()
-        gp = _exact_gp_from_params(params, x, y, fixed_noise_variances)
-        loss = -gp.log_marginal_likelihood() / n
-        loss.backward()
-        value = float(loss.detach())
-        if stopper.should_stop(value):
-            break  # the stopping epoch's update is discarded
-        optimizer.step()
-        losses.append(value)
-    return _exact_gp_from_params(_detached(params), x, y, fixed_noise_variances), losses
+
+    def epoch(rescue: bool):
+        def step(t, state):
+            p, mu, nu, count = state[:4], state[4:8], state[8:12], state[12]
+            failed = []
+
+            def plain(matrix):
+                chol = _cholesky_or_nan(matrix)
+                failed.append(~_all_finite(chol).all())
+                return chol
+
+            gp = _exact_gp_from_params(dict(zip(_EXACT_PARAMS, p)), x, y, fixed_noise_variances)
+            loss = -gp.log_marginal_likelihood(ladder_cholesky if rescue else plain) / n
+            grads = torch.autograd.grad(loss, p)
+            new_p, mu, nu, count = _adam(p, grads, mu, nu, count, learning_rate)
+            new_state = (*new_p, *mu, *nu, count)
+            return (new_state, loss) if rescue else (new_state, loss, failed[0])
+
+        return step
+
+    zeros = tuple(torch.zeros_like(p) for p in params)
+    run = run_training(
+        epoch(rescue=False),
+        (*params, *zeros, *zeros, torch.zeros((), dtype=dtype, device=device)),
+        int(number_of_epochs), learning_rate, early_stopper_patience, dtype, device,
+        discard=True, fallback=epoch(rescue=True), what="fit_exact_gp",
+    )
+    fitted = {name: v.detach() for name, v in zip(_EXACT_PARAMS, run.state[:4])}
+    return (_exact_gp_from_params(fitted, x, y, fixed_noise_variances),
+            _recorded_losses(run))
 
 
 # --------------------------------------------------------------------------
@@ -197,7 +226,11 @@ def fit_svgp(
     for an epoch is the full-data loss after its updates.
     ``learn_kernel_parameters=False`` freezes the lengthscales and the
     outputscale, ``learn_observation_noise=False`` the likelihood noise.
-    Returns ``(None, None)`` if an epoch leaves a parameter non-finite."""
+    Returns ``(None, None)`` if an epoch leaves a parameter non-finite.
+
+    On the card the epoch's permutation is drawn inside the graph from
+    ``generator``, registered with it, so a graphed fit draws the very
+    permutations of the eager one."""
     device = svgp.x_induce.device
     x = _as_2d(as_tensor(x, device=device))
     y = as_tensor(y, device=device)
@@ -205,42 +238,57 @@ def fit_svgp(
     batch_size = min(int(batch_size), n)
     num_batches = max(n // batch_size, 1)
     rem = n - num_batches * batch_size
-    generator = as_generator(generator, device=device) if orders is None else None
+    if orders is None:
+        generator = as_generator(generator, device=device)
+    else:
+        orders = torch.as_tensor(np.asarray(orders), dtype=torch.int64, device=device)
 
     frozen = set()
     if not learn_kernel_parameters:
         frozen |= {"log_lengthscales", "log_outputscale"}
     if not learn_observation_noise:
         frozen |= {"log_noise"}
-    params = _leaves(_svgp_params(svgp, learn_inducing_locations),
-                     trainable=lambda name: name not in frozen)
-    optimizer = torch.optim.SGD([v for v in params.values() if v.requires_grad],
-                                lr=learning_rate)
+    params = _svgp_params(svgp, learn_inducing_locations)
+    names = tuple(params)
+    trainable = tuple(name for name in names if name not in frozen)
 
-    def step(index):
-        optimizer.zero_grad()
-        loss = -_svgp_from_params(params, svgp).elbo(x[index], y[index], n) / n
-        loss.backward()
-        optimizer.step()
+    def sgd(p: dict, index: torch.Tensor) -> dict:
+        """One optax.sgd step on a batch: p - lr g."""
+        p = {k: v.detach().requires_grad_(k in trainable) for k, v in p.items()}
+        loss = -_svgp_from_params(p, svgp).elbo(x[index], y[index], n) / n
+        grads = torch.autograd.grad(loss, [p[k] for k in trainable], allow_unused=True)
+        for k, g in zip(trainable, grads):
+            if g is not None:
+                p[k] = p[k].detach() - learning_rate * g
+        return p
 
-    stopper = _Stopper(learning_rate, early_stopper_patience)
-    losses: list[float] = []
-    for epoch in range(int(number_of_epochs)):
+    def step(t, state):
+        p = dict(zip(names, state))
         if orders is None:
             order = torch.randperm(n, generator=generator, device=device)
         else:
-            order = torch.as_tensor(orders[epoch], device=device)
+            order = take(orders, t)
         for b in range(num_batches):
-            step(order[b * batch_size : (b + 1) * batch_size])
+            p = sgd(p, order[b * batch_size : (b + 1) * batch_size])
         if rem:
-            step(order[num_batches * batch_size :])
-        # the epoch's updates are adopted, then non-finite parameters abort,
-        # then the stopper may break without recording the loss
-        if not all(bool(torch.isfinite(v).all()) for v in params.values()):
-            return None, None
+            p = sgd(p, order[num_batches * batch_size :])
         with torch.no_grad():
-            value = float(-_svgp_from_params(params, svgp).elbo(x, y, n) / n)
-        if stopper.should_stop(value):
-            break
-        losses.append(value)
-    return _svgp_from_params(_detached(params), svgp), losses
+            p = _detached(p)
+            loss = -_svgp_from_params(p, svgp).elbo(x, y, n) / n
+        return tuple(p[k] for k in names), loss
+
+    def non_finite(state):
+        return ~torch.stack([torch.isfinite(v).all() for v in state]).all()
+
+    # the epoch's updates are adopted, then non-finite parameters abort,
+    # then the stopper may stop without recording the loss
+    run = run_training(
+        step, tuple(params[k] for k in names), int(number_of_epochs), learning_rate,
+        early_stopper_patience, x.dtype, device, abort=non_finite,
+        generators=(generator,) if orders is None and device.type == "cuda" else (),
+        what="fit_svgp",
+    )
+    if run.aborted:
+        return None, None
+    fitted = {k: v.detach() for k, v in zip(names, run.state)}
+    return _svgp_from_params(fitted, svgp), _recorded_losses(run)

@@ -26,7 +26,7 @@ def _probability_clip(p: torch.Tensor, jitter: float) -> torch.Tensor:
     would do nothing and a Bernoulli ``log(1 - p)`` would be -inf. In fp64
     the floor (2.2e-16) is below 1e-10 and the reference is unchanged."""
     eps = torch.finfo(p.dtype).eps
-    jit = torch.clamp_min(torch.tensor(jitter, dtype=p.dtype, device=p.device), eps)
+    jit = torch.clamp_min(torch.full((), jitter, dtype=p.dtype, device=p.device), eps)
     return torch.minimum(torch.maximum(p, jit), 1.0 - jit)
 
 

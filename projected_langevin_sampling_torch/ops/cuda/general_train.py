@@ -61,7 +61,8 @@ from projected_langevin_sampling_torch.utils.columns import (
 )
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
-    run_with_stopper,
+    run_training,
+    take,
 )
 
 # the order of the kernel's CostKind enum
@@ -241,7 +242,7 @@ def general_train_reference(
             u_new = dec * (u - eta * (ds * g))
             scale = nscale
         if not zero_noise:
-            eps = noise[t] if noise is not None else column_normals(
+            eps = take(noise, t) if noise is not None else column_normals(
                 u.shape, generator, dtype, device, shard
             )
             u_new = u_new + scale * eps
@@ -249,10 +250,9 @@ def general_train_reference(
         prior_j = 0.5 * torch.sum(torch.square(u_new) * inv_lam, dim=0)
         return (u_new, dc_new), column_mean(cost_j + prior_j, shard)
 
-    (u, _), energies, recorded, steps_run = run_with_stopper(
-        step, (u0, sweep(u0)[1]), num_steps, eta, patience, dtype, device
-    )
-    return u, energies, recorded, steps_run
+    run = run_training(step, (u0, sweep(u0)[1]), num_steps, eta, patience, dtype, device,
+                       graph=False)
+    return run.state[0], run.energies, run.recorded, run.steps_run
 
 
 def general_train(

@@ -16,7 +16,10 @@ the path, the grid and the store width; see the note in ``csrc/gram.cu``.
 plain version only for tensors that lie on the CPU. On the card the launch
 sits inside :class:`ARDGram`, a ``torch.autograd.Function`` whose backward
 is plain torch (:func:`ard_gram_scaled_backward`), so the GP fits get the
-gradient of every gram in lengthscales, outputscale and inputs.
+gradient of every gram in lengthscales, outputscale and inputs. An
+outputscale tensor on the card reaches the kernel by its address, never
+read on the host: a GP step is captured into a CUDA graph
+(``utils/early_stopper.py``) and replays the launch with each step's value.
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ import ctypes
 import torch
 
 from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.utils.early_stopper import count_replays
 
 _ENTRY = {torch.float32: "plst_ard_gram_f32", torch.float64: "plst_ard_gram_f64"}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-    ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_double, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -80,14 +84,15 @@ def ard_gram_scaled_backward(
     return g1, g2, gs
 
 
-def _value(outputscale) -> float:
-    """The outputscale as a float (a tensor's value, read without its graph)."""
+def _value(outputscale):
+    """The outputscale without its autograd graph: a float, or a tensor that
+    stays on its device (reading it on the host would wait for the card)."""
     if isinstance(outputscale, torch.Tensor):
-        return float(outputscale.detach())
+        return outputscale.detach()
     return float(outputscale)
 
 
-def _launch(x1: torch.Tensor, x2: torch.Tensor, outputscale: float, same: bool) -> torch.Tensor:
+def _launch(x1: torch.Tensor, x2: torch.Tensor, outputscale, same: bool) -> torch.Tensor:
     if x1.device.type != "cuda" or x1.device != x2.device:
         raise ValueError(f"ard_gram_scaled: inputs on {x1.device} and {x2.device}")
     if x1.dtype not in _ENTRY or x2.dtype != x1.dtype:
@@ -100,11 +105,19 @@ def _launch(x1: torch.Tensor, x2: torch.Tensor, outputscale: float, same: bool) 
     n2 = x2.shape[0]
     if same and n1 != n2:
         raise ValueError("ard_gram_scaled: same=True needs one input")
+    scale = None
+    if isinstance(outputscale, torch.Tensor):
+        if outputscale.numel() != 1 or outputscale.device != x1.device:
+            raise ValueError(f"ard_gram_scaled: outputscale {tuple(outputscale.shape)} on "
+                             f"{outputscale.device}; needs one value on {x1.device}")
+        scale = outputscale.detach().to(x1.dtype).contiguous()
     out = torch.empty((n1, n2), dtype=x1.dtype, device=x1.device)
     with torch.cuda.device(x1.device):  # the launch goes to the current device
         err = _entry(x1.dtype)(
             x1.data_ptr(), x2.data_ptr(), out.data_ptr(), n1, n2, d,
-            outputscale, int(same), torch.cuda.current_stream().cuda_stream,
+            0.0 if scale is not None else float(outputscale),
+            None if scale is None else scale.data_ptr(), int(same),
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, f"ard_gram kernel (N1={n1}, N2={n2}, D={d})")
     ard_gram_scaled.launches += 1
@@ -117,13 +130,15 @@ class ARDGram(torch.autograd.Function):
     gram; the backward is :func:`ard_gram_scaled_backward`. For a same-input
     gram pass the one input as both ``x1`` and ``x2``: autograd adds the two
     input gradients on it. ``outputscale`` may be a tensor: the kernel reads
-    its value, and its gradient reaches the tensor."""
+    its value on the device, and its gradient reaches the tensor."""
 
     backward_calls = 0  # backward passes run, on either device
 
     @staticmethod
     def forward(ctx, x1, x2, outputscale, same):
         s = _value(outputscale)
+        if isinstance(s, torch.Tensor):
+            s = s.to(x1.dtype)  # as a float would enter the gram's dtype
         if x1.device.type == "cpu" and x2.device.type == "cpu":
             gram = ard_gram_scaled_reference(x1, x2, s, same)
         else:
@@ -161,3 +176,5 @@ def ard_gram_scaled(
 
 
 ard_gram_scaled.launches = 0
+count_replays(ard_gram_scaled, "launches")
+count_replays(ARDGram, "backward_calls")

@@ -51,7 +51,8 @@ from projected_langevin_sampling_torch.utils.columns import (
 )
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
-    run_with_stopper,
+    run_training,
+    take,
 )
 
 # fp32 operations per element of U and step besides the products, for the
@@ -143,7 +144,7 @@ def quadratic_train_reference(
         drift = (v if shared else product(a, u)) - b_col
         u_new = u - eta * drift
         if not zero_noise:
-            z = noise[t] if noise is not None else column_normals(
+            z = take(noise, t) if noise is not None else column_normals(
                 u.shape, generator, dtype, device, shard
             )
             eps = z if noise_factor is None else product(noise_factor, z)
@@ -153,10 +154,8 @@ def quadratic_train_reference(
         return (u_new, v_new), column_mean(energy_j, shard)
 
     v0 = product(a, u0) if shared else torch.zeros_like(u0)
-    (u, _), energies, recorded, steps_run = run_with_stopper(
-        step, (u0, v0), num_steps, eta, patience, dtype, device
-    )
-    return u, energies, recorded, steps_run
+    run = run_training(step, (u0, v0), num_steps, eta, patience, dtype, device, graph=False)
+    return run.state[0], run.energies, run.recorded, run.steps_run
 
 
 def quadratic_train(

@@ -54,7 +54,8 @@ from projected_langevin_sampling_torch.utils.columns import (
 )
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
-    run_with_stopper,
+    run_training,
+    take,
 )
 
 THREADS = 256  # csrc/spectral_train.cu: threads per block
@@ -199,17 +200,15 @@ def spectral_train_reference(
         if zero_noise:
             eps = torch.zeros_like(w)
         elif noise is not None:
-            eps = noise[t]
+            eps = take(noise, t)
         else:
             eps = column_normals(w.shape, generator, dtype, device, shard)
         w_new = decay_c * w + shift_c + noise_scale * eps
         energy_j = 0.5 * torch.sum(sigma_c * torch.square(w_new), dim=0) - b_rot @ w_new + e_const
         return (w_new,), column_mean(energy_j, shard)
 
-    (w,), energies, recorded, steps_run = run_with_stopper(
-        step, (w0,), num_steps, eta, patience, dtype, device
-    )
-    return w, energies, recorded, steps_run
+    run = run_training(step, (w0,), num_steps, eta, patience, dtype, device, graph=False)
+    return run.state[0], run.energies, run.recorded, run.steps_run
 
 
 def _launch(w0, w_out, coeffs, partials, j, j0, j_total, step0, num_steps, noise_scale, seed,

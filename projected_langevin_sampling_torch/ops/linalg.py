@@ -152,6 +152,26 @@ def nan_rescued_cholesky(
     return _cholesky_or_nan(matrix + selected[..., None, None] * eye)
 
 
+def ladder_cholesky(
+    matrix: torch.Tensor, base_jitter: float = 1e-6, max_tries: int = 5
+) -> torch.Tensor:
+    """:func:`nan_rescued_cholesky` as data flow, reading nothing on the host
+    (the JAX package's form): every jitter of the ladder is probed on the
+    detached matrix, and the matrix plus the first finite one (0 where the
+    plain factor is finite, bit for bit that factor) is factored with its
+    gradient. It costs max_tries + 2 factorisations, so the graphed exact-GP
+    fit takes it only for a step whose plain factor is not finite."""
+    eye = _eye_like(matrix)
+    probe = matrix.detach()
+    selected = torch.zeros(matrix.shape[:-2], dtype=matrix.dtype, device=matrix.device)
+    found = torch.zeros(matrix.shape[:-2], dtype=torch.bool, device=matrix.device)
+    for j in [0.0] + [base_jitter * 10.0**k for k in range(max_tries)]:
+        ok = _all_finite(_cholesky_or_nan(probe + j * eye))[..., 0, 0]
+        selected = torch.where(~found & ok, j, selected)
+        found = found | ok
+    return _cholesky_or_nan(matrix + selected[..., None, None] * eye)
+
+
 def robust_cholesky(matrix: torch.Tensor, max_tries: int = 6, initial_jitter: float | None = None):
     """Cholesky with escalating jitter, run on the host in the matrix's dtype
     at build time: the exact factor first, then ``initial_jitter * 10^k``,

@@ -29,7 +29,11 @@ W-space ONB view (:func:`ipb_w_space_view`) and maps the particles back.
 
 Each tier of :func:`train_pls` has the early-stopper carry of the JAX scan:
 the stop step's update is applied and its energy written but not recorded,
-the particles freeze after it and later energies are NaN. The JAX package's
+the particles freeze after it and later energies are NaN. The ``off`` and
+``quadratic`` tiers carry it on the device through
+``utils/early_stopper.run_training``: on the card one step is a captured
+CUDA graph, replayed in chunks, the counterpart of the JAX package's scan
+(``training.py:687``, ``_train_pls_scan``). The JAX package's
 VMEM fallbacks of the fused tiers (``training.py:237-242, 250-253``) have no
 counterpart: no kernel here has a resident-size limit, so a fused request is
 never downgraded for size.
@@ -78,7 +82,8 @@ from projected_langevin_sampling_torch.ops.cuda.spectral_train import spectral_t
 from projected_langevin_sampling_torch.utils.columns import ColumnShard, column_mean, column_normals
 from projected_langevin_sampling_torch.utils.early_stopper import (
     replay_early_stopper,
-    run_with_stopper,
+    run_training,
+    take,
 )
 from projected_langevin_sampling_torch.utils.prng import GeneratorLike, as_generator
 
@@ -424,7 +429,7 @@ def _update_noise(basis, noise, generator, number_of_particles: int,
         return lambda t: basis.sample_update_noise(number_of_particles, normals=column_normals(
             shape, generator, basis.dtype, basis.device, shard))
     return lambda t: basis.sample_update_noise(
-        number_of_particles, generator, normals=None if noise is None else noise[t]
+        number_of_particles, generator, normals=None if noise is None else take(noise, t)
     )
 
 
@@ -577,10 +582,12 @@ def _train_pls_loop(
         state0 = (particles, basis.calculate_untransformed_train_prediction_samples(particles))
     else:
         raise ValueError(f"Unknown tier {tier!r}")
-    state, energies, recorded, steps_run = run_with_stopper(
-        step, state0, number_of_epochs, eta, patience, dtype, device
+    run = run_training(
+        step, state0, number_of_epochs, eta, patience, dtype, device,
+        generators=(generator,) if generator.device.type == "cuda" else (),
+        what=f"the {tier} tier",
     )
-    return TrainResult(state[0], energies, recorded, steps_run)
+    return TrainResult(run.state[0], run.energies, run.recorded, run.steps_run)
 
 
 def _split_update(basis, eta: float, discretisation: str, draw):
@@ -604,15 +611,19 @@ def _split_update(basis, eta: float, discretisation: str, draw):
 
 def _train_pls_chunked(*args, **kwargs):
     """The JAX package's runner of very long runs in bounded device programs
-    (its ``training.py:1030``), which nothing here needs: an eager loop is no
-    program, :func:`run_with_stopper` looks at the stop flag every 256 steps
-    and leaves the loop once stopped, and the spectral kernel already runs
-    in pieces of at most ``STEPS_PER_LAUNCH`` steps. A deliberate deviation;
-    neither :func:`train_pls` nor ``parallel.parallel_train_pls`` calls it."""
+    (its ``training.py:1030``), kept unported by name, a deliberate
+    deviation: here every run of the ``off`` and ``quadratic`` tiers is
+    already in chunks. On the card one step is captured into a CUDA graph
+    and replayed, and the host reads the stop flag once every
+    ``utils/early_stopper.CHECK_EVERY`` steps (``run_training``, the
+    counterpart of that runner and of its ``_drain_chunks``); the whole-run
+    kernels B1, B3 and B4 run a tier in one launch or in pieces of at most
+    ``STEPS_PER_LAUNCH`` steps. Neither :func:`train_pls` nor
+    ``parallel.parallel_train_pls`` calls it."""
     raise NotImplementedError(
-        "_train_pls_chunked is not ported: train_pls and parallel_train_pls run any length as "
-        "eager loops that check the early stop every 256 steps (utils/early_stopper.py), and the "
-        "spectral kernel runs in pieces itself; that is what the chunked runner bought on the TPU"
+        "_train_pls_chunked is not ported: train_pls and parallel_train_pls run every tier in "
+        "chunks already (utils/early_stopper.run_training: CUDA-graph replays on the card, the "
+        "stop flag read once a chunk), and the whole-run kernels launch in pieces themselves"
     )
 
 
@@ -636,8 +647,9 @@ def train_pls(
     takes the spectral tier for a Gaussian-identity cost, else off). An IPB
     model under a split scheme or ``general_fused`` trains in its W-space ONB
     view and leaves through U = S W (:func:`needs_w_space_reroute`). The
-    spectral tier's factorisation runs in host fp64; very long runs are one
-    loop (the JAX package's chunked runner has no counterpart here)."""
+    spectral tier's factorisation runs in host fp64; on the card the
+    ``off`` and ``quadratic`` tiers run as chunks of CUDA-graph replays of
+    one step (``utils/early_stopper.run_training``)."""
     if generator is None and seed is not None:
         generator = seed
     if discretisation not in DISCRETISATIONS:

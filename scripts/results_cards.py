@@ -21,7 +21,13 @@ markdown and long CSV, and the real-data rollup against the reference's
 default; a main none of whose sets is chosen does not run:
 
   python3 scripts/results_cards.py --root build/cards [--seeds 0-9] \\
-      [--datasets diabetes_sklearn,wine_uci] [--device cpu]
+      [--datasets diabetes_sklearn,wine_uci] [--device cpu] \\
+      [--config regression=experiments/uci/regression/config_precond_map.yaml] \\
+      [--models pls-onb,svgp] [--no_summary]
+
+``--config MAIN=PATH`` runs a main at another config (the JAX package's own,
+uncut, for instance), ``--models`` restricts the regression main's models,
+and ``--no_summary`` leaves out the pipeline after the mains.
 """
 
 from __future__ import annotations
@@ -83,12 +89,13 @@ def write_datasets(datasets_dir: str) -> None:
 
 
 def run_main(main_name: str, dataset: str, seed: int, root: str, datasets_dir: str, device,
-             models: set[str] | None = None) -> dict:
+             models: set[str] | None = None, config_path: str | None = None) -> dict:
     """One main on one dataset and data seed, into its tree; its seconds
     (host clock after a device sync), the B1 and B2 launches inside it and
-    pls-onb's step size. ``models`` restricts the regression main's models."""
+    pls-onb's step size. ``models`` restricts the regression main's models;
+    ``config_path`` replaces the main's config."""
     spec = MAINS[main_name]
-    config = load_config(os.path.join(ROOT, spec["config"]))
+    config = load_config(os.path.join(ROOT, config_path or spec["config"]))
     kwargs = {f"{k}_config": v for k, v in config.items()}
     if models is not None:
         kwargs["models_filter"] = models
@@ -209,7 +216,17 @@ def main(argv: list[str] | None = None) -> int:
                         help="comma-separated names (default: every real set of each main)")
     parser.add_argument("--seeds", default="0-9", help="data seeds: 0-9 or 0,3,7")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--config", action="append", default=[],
+                        help="MAIN=PATH: run that main (regression or classification) at PATH")
+    parser.add_argument("--models", default=None,
+                        help="comma-separated models of the regression main (default: all)")
+    parser.add_argument("--no_summary", action="store_true",
+                        help="run the mains only, not the pipeline")
     args = parser.parse_args(argv)
+    configs = dict(item.split("=", 1) for item in args.config)
+    if set(configs) - set(MAINS):
+        parser.error(f"--config names a main that is not {sorted(MAINS)}: {sorted(configs)}")
+    models = None if args.models is None else set(args.models.split(","))
     chosen = None if args.datasets is None else set(args.datasets.split(","))
     unknown = (chosen or set()) - {d for spec in MAINS.values() for d in spec["datasets"]}
     if unknown:
@@ -225,7 +242,8 @@ def main(argv: list[str] | None = None) -> int:
             for dataset in datasets:
                 try:
                     record = run_main(main_name, dataset, seed, args.root, datasets_dir,
-                                      args.device)
+                                      args.device, models if main_name == "regression" else None,
+                                      configs.get(main_name))
                 except Exception as e:  # the sweep goes on, as the mains' do
                     traceback.print_exc()
                     record = {"main": main_name, "dataset": dataset, "seed": seed,
@@ -233,7 +251,8 @@ def main(argv: list[str] | None = None) -> int:
                     failed += 1
                 print(json.dumps(record), flush=True)
             join_seed(args.root, main_name, seed, datasets)
-    summarise(args.root, provenance(args.device))
+    if not args.no_summary:
+        summarise(args.root, provenance(args.device))
     return 1 if failed else 0
 
 
