@@ -68,7 +68,10 @@ each run with the launch counters set to 0 just before it and read just after:
   both sets in the head-to-head and the real-data rollup, every per-seed
   value back exactly from the long CSV, the same tables from the long CSV
   alone, and pls-onb's per-seed test MSE and accuracy inside phase 15's
-  limits.
+  limits;
+- slice 11 (phase 18), the mixture main at its preconditioned config
+  (GP epochs cut) on curve 1: its mode split, estimated shift and NLL held
+  to the spread of the port's CPU runs of the same data over PLS seeds.
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
 tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
@@ -2781,6 +2784,63 @@ def phase_graph_runs():
     return results
 
 
+# --------------------------------------------------------------------------
+# phase 18: slice 11, the preconditioned mixture main against its CPU spread
+# --------------------------------------------------------------------------
+# The mixture main at config_precond.yaml cut in depth (GP epochs only,
+# experiments_torch/curves/mixture_likelihood/config_precond_short.yaml) on
+# curve 1, PLS seed 0, fp64, through scripts/curve_mains.py's
+# run_mixture_precond (the split and shift of the particles' train
+# predictions, without predictive noise). The card draws its own Langevin
+# noise, so it is held to the spread of the port's CPU runs of the same data
+# draw over PLS seeds 0-9 (python3 scripts/curve_mains.py --device cpu
+# --curves 1 --mixture_bands 0-9, on the CPU of the development machine;
+# the port's main equals the JAX package's on carried draws,
+# scripts/carried_gaps.py): 30-31 of 50 particles in the shifted mode,
+# estimated shift 18.2591-18.4790, NLL a train point 4.17880-4.19000. The
+# bands are those ranges widened on each side by three times their width,
+# and by three particles for the split. The card's own ten seeds gave
+# 30-31, 18.2613-18.5465 and 4.16279-4.20350; its seed 0, its draws
+# replayed on the CPU, gives the card's particles to 1e-14.
+CURVE18 = 1
+SPLIT18 = (27, 34)  # particles in the shifted mode
+SHIFT18 = (18.2591 - 3 * 0.2199, 18.4790 + 3 * 0.2199)
+NLL18 = (4.17880 - 3 * 0.01120, 4.19000 + 3 * 0.01120)
+
+
+def phase_mixture_precond(counters):
+    """The mixture main on ``config_precond_short.yaml``, curve 1, on the
+    card: its mode split, estimated shift and NLL within the CPU spread
+    (constants above), its particles finite, its GP fit, build and predict
+    on B2."""
+    import tempfile
+
+    from projected_langevin_sampling_torch.ops.cuda.gram import ARDGram
+
+    curves = runpy.run_path(os.path.join(ROOT, "scripts", "curve_mains.py"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mixture_")
+    try:
+        ARDGram.backward_calls = 0
+        out, seconds, launches = run_counted(counters, lambda: curves["run_mixture_precond"](
+            tmp, "cuda", CURVE18, 0))
+        launches["backward"] = ARDGram.backward_calls
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  curve {CURVE18}: {seconds:.1f} s; launches {launches}; particles in the curve mode "
+        f"{out['n_lower']}, in the shifted mode {out['n_upper']} (band {SPLIT18}), estimated "
+        f"shift {out['est_shift']:.4f} (band {SHIFT18[0]:.4f}-{SHIFT18[1]:.4f}), NLL "
+        f"{out['nll']:.5f} (band {NLL18[0]:.5f}-{NLL18[1]:.5f})")
+    require(out["finite"], "the mixture main's particles are not finite")
+    require(SPLIT18[0] <= out["n_upper"] <= SPLIT18[1],
+            f"{out['n_upper']} particles in the shifted mode, outside {SPLIT18}")
+    require(SHIFT18[0] <= out["est_shift"] <= SHIFT18[1],
+            f"estimated shift {out['est_shift']} outside {SHIFT18}")
+    require(NLL18[0] <= out["nll"] <= NLL18[1], f"NLL {out['nll']} outside {NLL18}")
+    require(launches["gram"] >= 1 and launches["backward"] >= 1,
+            f"mixture main: B2 {launches['gram']}, B2 backward {launches['backward']}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2888,6 +2948,9 @@ def main() -> int:
     phase("phase 17: slice 10, the graphed training runs (exact GP, Dirichlet GP, SVGP, the "
           "Student-T and smoothed-Bernoulli off tiers, a stop inside a chunk and on a NaN) "
           "against their eager form, fp64", phase_graph_runs)
+    launches_18 = phase(f"phase 18: slice 11, the preconditioned mixture main on curve {CURVE18} "
+                        "against its CPU spread over PLS seeds, fp64, depth cut",
+                        phase_mixture_precond, counters)
 
     kernels = [
         {"name": "spectral_train", "route": "cuda",
@@ -2902,12 +2965,14 @@ def main() -> int:
          "source": "projected_langevin_sampling_torch/csrc/gram.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/gram.py:42",
          # the slice 1 path's launches, the slice 4 path's (phase 11) and the
-         # harnesses' (phases 13-16)
+         # harnesses' (phases 13-16, 18)
          "launches": (launches["gram"] + launches_11["gram"] + launches_13["gram"]
-                      + launches_14["gram"] + launches_15["gram"] + launches_16["gram"]),
+                      + launches_14["gram"] + launches_15["gram"] + launches_16["gram"]
+                      + launches_18["gram"]),
          "library_ms": None, "matched": True, **gram_res,
          **b2_backward_keys(launches_11, launches_13["backward"] + launches_14["backward"]
-                            + launches_15["backward"] + launches_16["backward"])},
+                            + launches_15["backward"] + launches_16["backward"]
+                            + launches_18["backward"])},
         {"name": "general_train", "route": "cuda",
          "source": "projected_langevin_sampling_torch/csrc/general_train.cu",
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/general_train.py:307",

@@ -387,21 +387,23 @@ def _main(
         stages.done(f"{pls_name} step-size search")
         if not writer:
             continue
-        for name, model in (
-            (pls_name, pls),
-            (f"{pls_name}-temper", TemperPLS(
+        # each model is built (and calibrated) after the previous one's
+        # metrics, in the JAX main's order of draws
+        for name, make_model in (
+            (pls_name, lambda: pls),
+            (f"{pls_name}-temper", lambda: TemperPLS(
                 pls=pls, particles=particles, x_calibration=validation.x,
                 y_calibration=validation.y,
                 # skip the Gaussian-cost checks where the cost is not Gaussian
                 debug=not isinstance(pls.cost, GaussianCost),
             )),
-            (f"{pls_name}-conformalise", ConformalisePLS(
+            (f"{pls_name}-conformalise", lambda: ConformalisePLS(
                 pls=pls, particles=particles, x_calibration=validation.x,
                 y_calibration=validation.y,
             )),
         ):
             calculate_metrics(
-                model=model,
+                model=make_model(),
                 particles=particles,
                 model_name=name,
                 dataset_name=dataset_name,

@@ -53,6 +53,7 @@ from projected_langevin_sampling_torch.utils.columns import (
     constant_share,
 )
 from projected_langevin_sampling_torch.utils.early_stopper import (
+    NoiseChunks,
     replay_early_stopper,
     run_training,
     take,
@@ -185,15 +186,17 @@ def spectral_train_reference(
 
     Noise per step: zeros with ``zero_noise``; else ``q_in^T @ noise[t]`` for
     injected noise ``noise`` (T, M, J) given in U coordinates (a shard's own
-    columns); else standard normals from ``generator`` (a shard's columns of
-    the whole draw). Returns ``(w, energies, recorded, steps_run)``.
+    columns), or a ``NoiseChunks`` of them; else standard normals from
+    ``generator`` (a shard's columns of the whole draw). Returns ``(w,
+    energies, recorded, steps_run)``.
     """
     dtype, device = w0.dtype, w0.device
     decay_c, shift_c, sigma_c = decay[:, None], shift[:, None], energy_sigma[:, None]
     if noise is not None:
         if q_in is None:
             raise ValueError("injected noise in U coordinates needs q_in")
-        noise = q_in.T @ noise  # (T, M, J) in W coordinates
+        rotate = lambda z: q_in.T @ z  # noqa: E731  (T, M, J) in W coordinates
+        noise = noise.map(rotate) if isinstance(noise, NoiseChunks) else rotate(noise)
 
     def step(t, state):
         (w,) = state

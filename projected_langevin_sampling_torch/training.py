@@ -81,6 +81,7 @@ from projected_langevin_sampling_torch.ops.cuda.quadratic_train import quadratic
 from projected_langevin_sampling_torch.ops.cuda.spectral_train import spectral_train
 from projected_langevin_sampling_torch.utils.columns import ColumnShard, column_mean, column_normals
 from projected_langevin_sampling_torch.utils.early_stopper import (
+    NoiseChunks,
     replay_early_stopper,
     run_training,
     take,
@@ -452,7 +453,10 @@ def _train_pls_loop(
     ``noise`` (T, M, J) injects the standard normals z of every step, the
     draws of the basis's update noise (the noise itself on the ONB, S z on
     the IPB): the parity hook, CPU tensors only on the fused tiers; the
-    spectral tier rotates it into its eigenbasis. Otherwise noise comes from
+    spectral tier rotates it into its eigenbasis. A
+    :class:`~projected_langevin_sampling_torch.utils.early_stopper.NoiseChunks`
+    gives the same normals a chunk at a time, for runs too long to hold
+    (CPU tensors only, every tier). Otherwise noise comes from
     ``generator``. ``shard``: the particles are columns j0 .. j0 + J_loc of a
     J-column run (``parallel/auto.py``): each tier draws those columns of
     the whole run's noise, and its energies are the shard's share of the
@@ -466,6 +470,8 @@ def _train_pls_loop(
             f"(allowed: {NON_EULER_TIERS[discretisation]})"
         )
     dtype, device = particles.dtype, particles.device
+    if isinstance(noise, NoiseChunks) and device.type != "cpu":
+        raise ValueError(f"chunked injected noise is for CPU tensors, not {device}")
     generator = as_generator(generator, device=device)
     eta = float(step_size)
     root2eta = math.sqrt(2.0 * eta)

@@ -92,9 +92,38 @@ def _cusolver(device: torch.device):
         torch.backends.cuda.preferred_linalg_library(before)
 
 
-def take(values: torch.Tensor, t) -> torch.Tensor:
+class NoiseChunks:
+    """Injected standard normals of a run too long to hold at once, the
+    chunked form of a tier's (T, M, J) ``noise``: ``draw(start, n)`` returns
+    those of steps start .. start + n - 1 as an (n, M, J) CPU tensor, asked
+    for ``chunk_steps`` steps at a time. CPU runs only: reading a step's
+    index on the host would break a CUDA graph."""
+
+    def __init__(self, draw, num_steps: int, chunk_steps: int = 4096):
+        self.draw, self.num_steps, self.chunk_steps = draw, int(num_steps), int(chunk_steps)
+        self._start, self._chunk = 0, None
+
+    def map(self, fn) -> NoiseChunks:
+        """The same normals with ``fn`` applied to each chunk (a rotation
+        into a tier's eigenbasis)."""
+        return NoiseChunks(lambda start, n: fn(self.draw(start, n)), self.num_steps,
+                           self.chunk_steps)
+
+    def step(self, t) -> torch.Tensor:
+        t = int(t)
+        if not 0 <= t < self.num_steps:
+            raise IndexError(f"step {t} of a {self.num_steps}-step run")
+        if self._chunk is None or not self._start <= t < self._start + self._chunk.shape[0]:
+            self._start, self._chunk = t, self.draw(t, min(self.chunk_steps, self.num_steps - t))
+        return self._chunk[t - self._start]
+
+
+def take(values, t) -> torch.Tensor:
     """``values[t]`` for an int or a 0-d index tensor; a tensor is not read
-    on the host (``values[t]`` would read it)."""
+    on the host (``values[t]`` would read it). ``values`` may be a
+    :class:`NoiseChunks`."""
+    if isinstance(values, NoiseChunks):
+        return values.step(t)
     if isinstance(t, int):
         return values[t]
     return values.index_select(0, t.reshape(1))[0]

@@ -25,8 +25,19 @@ the regression main, which writes none, scored from its models with
 generator 0), then the mixture summaries and ``compare_onb_scaling`` at the
 JAX protocol where chosen:
 
+``--mixture_bands 0-9`` runs only the preconditioned mixture main (depth
+cut) on the first of ``--curves`` over those PLS seeds, the values chip_smoke.py
+phase 18 holds to the ranges they give:
+
+  python3 scripts/curve_mains.py --device cpu --out build/bands --curves 1 \
+      --mixture_bands 0-9
+
   python3 scripts/curve_mains.py --full --out chiprun_out/full --jobs 8 \
-      [--pieces regression,classification] [--curves 1-10]
+      [--pieces regression,classification] [--curves 1-10] [--dtype float32]
+
+``--dtype`` is the mains' own (fp64 by default; float32 is the precision the
+reference's record was run in); the Poisson study and ``compare_onb_scaling``
+take none and stay in fp64.
 """
 
 from __future__ import annotations
@@ -105,10 +116,10 @@ def read_results(results: str, models: list[str], metrics: tuple[str, ...]) -> d
 
 
 def run_regression(name: str, outputs: str, device, curve: int = CURVE,
-                   configs: dict = SHORT) -> dict:
+                   configs: dict = SHORT, dtype: torch.dtype = torch.float64) -> dict:
     """The regression main (``name``: its config); pls-onb's test MSE."""
     out = regression.main(curve_function=CURVE_FUNCTIONS[curve - 1], outputs_path=outputs,
-                          device=device, **_sections(config_of(name, configs)))
+                          device=device, dtype=dtype, **_sections(config_of(name, configs)))
     test = out["experiment_data"].test
     prediction = out["pls"](x=test.x, particles=out["particles"], generator=0)
     if configs is SHORT:
@@ -126,21 +137,24 @@ def run_regression(name: str, outputs: str, device, curve: int = CURVE,
             "observation_noise": float(noise)}
 
 
-def run_classification(outputs: str, device, curve: int = CURVE, configs: dict = SHORT) -> dict:
+def run_classification(outputs: str, device, curve: int = CURVE, configs: dict = SHORT,
+                       dtype: torch.dtype = torch.float64) -> dict:
     """The classification main; its metric files, and the best PLS test
     accuracy."""
     classification.main(curve_function=CURVE_FUNCTIONS[curve - 1], outputs_path=outputs,
-                        device=device, **_sections(config_of("classification", configs)))
+                        device=device, dtype=dtype,
+                        **_sections(config_of("classification", configs)))
     values = read_results(os.path.join(outputs, "results", f"curve{curve}"),
                           PLS_CLASSIFIERS + ["svgp-c"], ("acc", "auc", "f1", "nll", "mae", "mse"))
     return {"values": values,
             "best_accuracy": max(values[(m, "acc_test")] for m in PLS_CLASSIFIERS)}
 
 
-def run_poisson(outputs: str, device, curve: int = CURVE, configs: dict = SHORT) -> dict:
+def run_poisson(outputs: str, device, curve: int = CURVE, configs: dict = SHORT,
+                dtype: torch.dtype = torch.float64) -> dict:
     """The Poisson main; its metric files and pls-onb's test NLL."""
     poisson.main(curve_function=CURVE_FUNCTIONS[curve - 1], outputs_path=outputs, device=device,
-                 **_sections(config_of("poisson_regression", configs)))
+                 dtype=dtype, **_sections(config_of("poisson_regression", configs)))
     values = read_results(os.path.join(outputs, "results", f"curve{curve}"),
                           ["pls-onb", "pls-ipb"], ("nll", "mae", "mse"))
     return {"values": values, "nll_test": values[("pls-onb", "nll_test")]}
@@ -166,6 +180,30 @@ def run_mixture(outputs: str, device) -> dict:
     return {"row": row, "table": os.path.join(outputs, "mixture_summary.md")}
 
 
+MIXTURE_PRECOND = "experiments_torch/curves/mixture_likelihood/config_precond_short.yaml"
+
+
+def run_mixture_precond(outputs: str, device, curve: int = 1, pls_seed: int = 0) -> dict:
+    """The mixture main at ``config_precond_short.yaml`` (the preconditioned
+    config, GP epochs cut) on ``curve`` with PLS seed ``pls_seed``: the mode
+    split and estimated shift of its particles (summarise's split of their
+    train predictions, taken without predictive noise, whose one draw would
+    differ between the CPU's generator and the card's for every seed), and
+    its NLL, the mixture likelihood's negative log a train point averaged
+    over the particles (the cost of the same predictions)."""
+    config = load_config(os.path.join(ROOT, MIXTURE_PRECOND))
+    config["pls"]["seed"] = pls_seed
+    out = mixture.main(curve_function=CURVE_FUNCTIONS[curve - 1], outputs_path=outputs,
+                       device=device, **_sections(config))
+    pls, particles, train = out["pls"], out["particles"], out["experiment_data"].train
+    predictions = pls.basis.calculate_untransformed_train_prediction_samples(particles)
+    split = summarise.mode_split(f"curve{curve}", predictions, train.y,
+                                 float(config["data"]["bernoulli_shift_true"]))
+    cost = pls.cost.calculate_cost(predictions)
+    return {**split, "nll": float(torch.mean(cost)) / train.y.shape[0],
+            "finite": bool(torch.isfinite(particles).all())}
+
+
 def run_profiler(outputs: str, device) -> dict:
     """The profiler's sweeps (fp32); the rows of its CSVs as written."""
     profiler.run_sweeps(config_of("profiler"), outputs, "auto", device=device)
@@ -185,12 +223,13 @@ def _jsonable(out: dict) -> dict:
     return out
 
 
-def run_full_piece(piece: str, curves: list[int], out: str, device, work: str | None = None
-                   ) -> None:
+def run_full_piece(piece: str, curves: list[int], out: str, device, work: str | None = None,
+                   dtype: torch.dtype = torch.float64) -> None:
     """One piece at its JAX config on ``curves``, its outputs in
     ``work/<piece>`` (default ``out``): a JSON line a curve (to stdout and
     ``out/<piece>.jsonl``), then the mixture summary, the Poisson study's
-    rows (data seed 0) or the ONB-scaling table (``out/<piece>.md``)."""
+    rows (data seed 0) or the ONB-scaling table (``out/<piece>.md``). The
+    mains run in ``dtype``."""
     outputs = os.path.join(work or out, piece)
     os.makedirs(outputs, exist_ok=True)
     lines = open(os.path.join(out, f"{piece}.jsonl"), "a")
@@ -213,11 +252,11 @@ def run_full_piece(piece: str, curves: list[int], out: str, device, work: str | 
         start = time.perf_counter()
         try:
             if piece.startswith("regression"):
-                res = run_regression(piece, outputs, device, curve, FULL)
+                res = run_regression(piece, outputs, device, curve, FULL, dtype)
             elif piece == "classification":
-                res = run_classification(outputs, device, curve, FULL)
+                res = run_classification(outputs, device, curve, FULL, dtype)
             elif piece == "poisson_regression":
-                res = run_poisson(outputs, device, curve, FULL)
+                res = run_poisson(outputs, device, curve, FULL, dtype)
             elif piece == "poisson_study":
                 long_csv = os.path.join(outputs, "poisson_study_long.csv")
                 study.run_cell(CURVE_FUNCTIONS[curve - 1], 0,
@@ -226,7 +265,7 @@ def run_full_piece(piece: str, curves: list[int], out: str, device, work: str | 
                 res = {}
             else:
                 mixture.main(curve_function=CURVE_FUNCTIONS[curve - 1], outputs_path=outputs,
-                             device=device, **_sections(config_of(piece, FULL)))
+                             device=device, dtype=dtype, **_sections(config_of(piece, FULL)))
                 res = {}
         except Exception as exc:  # the other curves still run
             res = {"error": f"{type(exc).__name__}: {exc}"}
@@ -234,7 +273,8 @@ def run_full_piece(piece: str, curves: list[int], out: str, device, work: str | 
               **_jsonable(res)})
     if piece.startswith("mixture"):
         rows = summarise.main(["--outputs_dirname", os.path.abspath(outputs), "--config_path",
-                               os.path.join(ROOT, FULL[piece]), "--device", str(device)])
+                               os.path.join(ROOT, FULL[piece]), "--device", str(device),
+                               "--dtype", str(dtype).removeprefix("torch.")])
         emit({"piece": piece, "summary": rows})
     if piece == "poisson_study":
         emit({"piece": piece, "study": study.read_long_csv(
@@ -248,7 +288,8 @@ def _curves(text: str) -> list[int]:
 
 
 def run_full(pieces: list[str], curves: list[int], out: str, device, jobs: int,
-             work: str | None = None, deadline: float | None = None) -> None:
+             work: str | None = None, deadline: float | None = None,
+             dtype: str = "float64") -> None:
     """Each piece in a process of its own, ``jobs`` at a time, with the
     host's cores shared among them; past ``deadline`` seconds the pieces
     still running are stopped (their finished curves are on disk)."""
@@ -265,7 +306,7 @@ def run_full(pieces: list[str], curves: list[int], out: str, device, jobs: int,
             log = open(os.path.join(out, f"{piece}.log"), "w")
             cmd = [sys.executable, os.path.abspath(__file__), "--full", "--worker",
                    "--pieces", piece, "--curves", ",".join(map(str, curves)), "--out", out,
-                   "--work", work or out, "--device", str(device)]
+                   "--work", work or out, "--device", str(device), "--dtype", dtype]
             running[piece] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                                                env=env), log, time.perf_counter())
         time.sleep(1.0)
@@ -296,16 +337,36 @@ def main() -> None:
                         help="where the mains write their outputs (default: --out)")
     parser.add_argument("--deadline", type=float, default=None,
                         help="seconds after which the pieces still running are stopped")
+    parser.add_argument("--dtype", type=str, default="float64", choices=("float64", "float32"),
+                        help="the mains' --dtype (--full)")
+    parser.add_argument("--mixture_bands", type=str, default=None, metavar="SEEDS",
+                        help="only run_mixture_precond on --curves' first curve over these "
+                        "PLS seeds (e.g. 0-4): a JSON line each, then the ranges")
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.mixture_bands is not None:
+        curve, rows = _curves(args.curves)[0], []
+        for seed in _curves(args.mixture_bands):
+            start = time.perf_counter()
+            row = run_mixture_precond(os.path.join(args.out, f"seed{seed}"), args.device, curve,
+                                      seed)
+            rows.append(row)
+            print(json.dumps({"pls_seed": seed, "seconds": time.perf_counter() - start, **row}),
+                  flush=True)
+        print(json.dumps({"curve": curve, "ranges": {
+            k: [min(r[k] for r in rows), max(r[k] for r in rows)]
+            for k in ("n_upper", "est_shift", "nll")}}))
+        return
     if args.full:
         pieces, curves = args.pieces.split(","), _curves(args.curves)
         if args.worker:
             torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
             for piece in pieces:
-                run_full_piece(piece, curves, args.out, args.device, args.work)
+                run_full_piece(piece, curves, args.out, args.device, args.work,
+                               getattr(torch, args.dtype))
         else:
-            run_full(pieces, curves, args.out, args.device, args.jobs, args.work, args.deadline)
+            run_full(pieces, curves, args.out, args.device, args.jobs, args.work, args.deadline,
+                     args.dtype)
         return
     report = {"device": args.device}
     for label, fn in (

@@ -23,11 +23,13 @@ default; a main none of whose sets is chosen does not run:
   python3 scripts/results_cards.py --root build/cards [--seeds 0-9] \\
       [--datasets diabetes_sklearn,wine_uci] [--device cpu] \\
       [--config regression=experiments/uci/regression/config_precond_map.yaml] \\
-      [--models pls-onb,svgp] [--no_summary]
+      [--models pls-onb,svgp] [--dtype float32] [--no_summary]
 
 ``--config MAIN=PATH`` runs a main at another config (the JAX package's own,
 uncut, for instance), ``--models`` restricts the regression main's models,
-and ``--no_summary`` leaves out the pipeline after the mains.
+``--dtype`` is the mains' own (fp64 by default; float32 is the precision
+the reference's record was run in) and ``--no_summary`` leaves out the
+pipeline after the mains.
 """
 
 from __future__ import annotations
@@ -89,11 +91,12 @@ def write_datasets(datasets_dir: str) -> None:
 
 
 def run_main(main_name: str, dataset: str, seed: int, root: str, datasets_dir: str, device,
-             models: set[str] | None = None, config_path: str | None = None) -> dict:
+             models: set[str] | None = None, config_path: str | None = None,
+             dtype: torch.dtype = torch.float64) -> dict:
     """One main on one dataset and data seed, into its tree; its seconds
     (host clock after a device sync), the B1 and B2 launches inside it and
     pls-onb's step size. ``models`` restricts the regression main's models;
-    ``config_path`` replaces the main's config."""
+    ``config_path`` replaces the main's config; ``dtype`` is the main's."""
     spec = MAINS[main_name]
     config = load_config(os.path.join(ROOT, config_path or spec["config"]))
     kwargs = {f"{k}_config": v for k, v in config.items()}
@@ -104,7 +107,7 @@ def run_main(main_name: str, dataset: str, seed: int, root: str, datasets_dir: s
         torch.cuda.synchronize()
     start = time.perf_counter()
     spec["module"].main(data_seed=seed, dataset_name=dataset, outputs_path=tree(root, main_name),
-                        datasets_dir=datasets_dir, device=device, **kwargs)
+                        datasets_dir=datasets_dir, device=device, dtype=dtype, **kwargs)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - start
@@ -189,15 +192,16 @@ def against_reference(root: str, reference: str = REFERENCE) -> str:
     return "\n".join(lines + [""] + totals) + "\n"
 
 
-def provenance(device) -> str:
-    """The device the mains ran on and their configs."""
+def provenance(device, dtype: str = "float64") -> str:
+    """The device the mains ran on, their precision and their configs."""
+    precision = {"float64": "fp64", "float32": "fp32"}[dtype]
     if torch.device(device).type == "cuda":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True, timeout=60).stdout.strip()
-        where = f"{torch.cuda.get_device_name(0)} ({smi}), fp64"
+        where = f"{torch.cuda.get_device_name(0)} ({smi}), {precision}"
     else:
-        where = f"the CPU (torch {torch.__version__}), fp64"
+        where = f"the CPU (torch {torch.__version__}), {precision}"
     return where + "; " + ", ".join(f"`{MAINS[m]['config']}`" for m in MAINS)
 
 
@@ -220,6 +224,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="MAIN=PATH: run that main (regression or classification) at PATH")
     parser.add_argument("--models", default=None,
                         help="comma-separated models of the regression main (default: all)")
+    parser.add_argument("--dtype", default="float64", choices=("float64", "float32"),
+                        help="the mains' --dtype")
     parser.add_argument("--no_summary", action="store_true",
                         help="run the mains only, not the pipeline")
     args = parser.parse_args(argv)
@@ -243,7 +249,7 @@ def main(argv: list[str] | None = None) -> int:
                 try:
                     record = run_main(main_name, dataset, seed, args.root, datasets_dir,
                                       args.device, models if main_name == "regression" else None,
-                                      configs.get(main_name))
+                                      configs.get(main_name), getattr(torch, args.dtype))
                 except Exception as e:  # the sweep goes on, as the mains' do
                     traceback.print_exc()
                     record = {"main": main_name, "dataset": dataset, "seed": seed,
@@ -252,7 +258,7 @@ def main(argv: list[str] | None = None) -> int:
                 print(json.dumps(record), flush=True)
             join_seed(args.root, main_name, seed, datasets)
     if not args.no_summary:
-        summarise(args.root, provenance(args.device))
+        summarise(args.root, provenance(args.device, args.dtype))
     return 1 if failed else 0
 
 

@@ -14,12 +14,19 @@ mixture, its initial normals) carried into the port's main.
   held within bands (see ``test_pls_values_within_the_band``).
 - The port's PLS models on the JAX main's particles and noise predict what
   JAX's predict, metrics included, at rtol 1e-7.
+- Run again on the JAX main's draws (``tests/torch_parity.Carrier``), from
+  its own GP and SVGP checkpoints, the port's main gives every ``pls*``
+  value, chosen step size, steps run and trained particles of the JAX
+  main's at rtol 1e-7; so do the two preconditioned configs
+  (``config_precond.yaml`` of the regression and mixture mains), run on
+  the JAX main's data and draws alone.
 """
 
 import contextlib
 import io
 import math
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +50,7 @@ from experiments_torch.curves.mixture_likelihood import main as tmixture
 from experiments_torch.curves.poisson_regression import main as tpoisson
 from experiments_torch.curves.regression import main as tregression
 from experiments_torch.data import Data, ExperimentData, ProblemType
-from tests.torch_parity import one_thread, to_np
+from tests.torch_parity import Carrier, one_thread, to_np
 
 CURVE = 2
 MAINS = {
@@ -53,6 +60,8 @@ MAINS = {
     "poisson_regression": (jpoisson, tpoisson, "experiments/curves/poisson_regression/config.yaml"),
     "mixture_likelihood": (jmixture, tmixture, "experiments/curves/mixture_likelihood/config.yaml"),
 }
+PRECOND = {"regression": "experiments/curves/regression/config_precond.yaml",
+           "mixture_likelihood": "experiments/curves/mixture_likelihood/config_precond.yaml"}
 RECORDED = ("construct_average_ard_kernel", "construct_average_gaussian_likelihood_from_models",
             "construct_average_mean_constant", "inducing_points_runner",
             "build_orthonormal_basis", "train_svgp_runner")
@@ -96,16 +105,21 @@ def _record(module, name, record, mp):
     mp.setattr(module, name, wrapper)
 
 
-def run_both(name, root, pls_seed=0):
-    """The JAX main, then the port's on its data, under ``root``; returns
-    (name, root, records, the JAX main's models by prediction name, the JAX
-    data, the port main's return, the log)."""
-    jmain, tmain, config_path = MAINS[name]
+def run_both(name, root, pls_seed=0, config_path=None, own_draws=True):
+    """The JAX main, then the port's on its data (with ``own_draws``), then
+    the port's again on the JAX main's draws (``records["carried"]``: the
+    carrier, each main's ``train_pls_runner`` returns and the port main's
+    return), under ``root``; returns (name, root, records, the JAX main's
+    models by prediction name, the JAX data, the port main's return, the
+    log)."""
+    jmain, tmain, default_config = MAINS[name]
+    config_path = config_path or default_config
     with open(config_path) as f:
         jconfig = cut(yaml.safe_load(f), pls_seed)
     tconfig = cut(load_config(config_path), pls_seed)
     sections = {k: f"{k}_config" for k in jconfig}
     records = {"jax": {}, "torch": {}}
+    carrier, runners = Carrier(), {"jax": {}, "carried": {}}
     jax_learned, jax_data = {}, []
     log = io.StringIO()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(log), one_thread():
@@ -131,6 +145,11 @@ def run_both(name, root, pls_seed=0):
                    lambda *a, _fn=jmain.get_experiment_data, **k: jax_data.append(_fn(*a, **k))
                    or jax_data[-1])
         mp.setattr(tmain, "get_experiment_data", lambda *a, **k: to_port(jax_data[-1]))
+        carrier.record_jax(mp)
+        if name == "mixture_likelihood":
+            carrier.carry_init_normals(mp, jmain, tmain)
+        for module in (jmain, jcommon):
+            _record(module, "train_pls_runner", runners["jax"], mp)
         if name == "mixture_likelihood":
             # the JAX main's initial normals, (M_k, J) from the key pls.seed
             def carried_init(*, approximation_dimension, number_of_particles, generator,
@@ -146,14 +165,39 @@ def run_both(name, root, pls_seed=0):
             mp.setattr(tmain, "generate_init_particles", carried_init)
         jmain.main(curve_function=JCURVES[CURVE - 1], outputs_path=str(root / "jax"),
                    include_gif=False, **{arg: jconfig[k] for k, arg in sections.items()})
-        port = tmain.main(curve_function=TCURVES[CURVE - 1], outputs_path=str(root / "torch"),
-                          device="cpu", **{arg: tconfig[k] for k, arg in sections.items()})
+        run_port = lambda out: tmain.main(  # noqa: E731
+            curve_function=TCURVES[CURVE - 1], outputs_path=str(root / out), device="cpu",
+            **{arg: tconfig[k] for k, arg in sections.items()})
+        port = None
+        if own_draws:
+            port = run_port("torch")
+            # the carried run starts from the port's own GP and SVGP
+            # checkpoints: only the PLS models train
+            shutil.copytree(root / "torch", root / "carried")
+            for d, _, fs in os.walk(root / "carried"):
+                for f in fs:
+                    if f.startswith("pls") and f.endswith(".pkl"):
+                        os.remove(os.path.join(d, f))
+        carrier.carry_port(mp)
+        for module in (tmain, tcommon):
+            _record(module, "train_pls_runner", runners["carried"], mp)
+            carrier.mute(mp, module, "predict_pls_1d_particles_runner")
+        own = {k: list(v) for k, v in records["torch"].items()}
+        records["carried"] = dict(carrier=carrier, runners=runners, port=run_port("carried"))
+        records["torch"] = own  # the records of the port's run on its own draws
+        carrier.drained()
     return name, root, records, jax_learned, jax_data[-1], port, log.getvalue()
 
 
 @pytest.fixture(scope="module", params=list(MAINS))
 def run(request, tmp_path_factory):
     return run_both(request.param, tmp_path_factory.mktemp(request.param))
+
+
+@pytest.fixture(scope="module", params=list(PRECOND))
+def precond_run(request, tmp_path_factory):
+    return run_both(request.param, tmp_path_factory.mktemp(f"{request.param}_precond"),
+                    config_path=PRECOND[request.param], own_draws=False)
 
 
 def _files(top):
@@ -347,3 +391,53 @@ def test_pls_values_within_the_band(run):
         assert jsplit["bimodal"] and tsplit["bimodal"]
         assert abs(tsplit["n_upper"] - jsplit["n_upper"]) <= 4
         assert abs(tsplit["est_shift"] - jsplit["est_shift"]) <= 0.12 * jsplit["est_shift"]
+
+
+def _assert_carried_run_matches_jax(run):
+    """The port's main on the JAX main's draws: each train_pls call's
+    energies and particles, each model's chosen step size, steps run and
+    trained particles, and every ``pls*`` results value at rtol 1e-7; the
+    mixture's mode split and estimated shift on JAX's predictive noise."""
+    name, root, records, jax_learned, data, _, _ = run
+    carried = records["carried"]
+    carried["carrier"].assert_runs_match(rtol=1e-7)
+    jruns = [r for v in carried["runners"]["jax"].values() for r in v]
+    truns = [r for v in carried["runners"]["carried"].values() for r in v]
+    assert len(jruns) == len(truns) > 0
+    for (jp, jlr, jn), (tp, tlr, tn) in zip(jruns, truns):
+        assert (tlr, tn) == (jlr, jn)
+        np.testing.assert_allclose(to_np(tp), to_np(jp), rtol=1e-7,
+                                   atol=1e-7 * np.abs(to_np(jp)).max())
+    results = os.path.join("results", "curve2")
+    if os.path.isdir(root / "jax" / results):
+        files = [f for f in _files(root / "jax" / results) if f.startswith("pls")]
+        assert files
+        for f in files:
+            jh, ji, jv = _value(root / "jax" / results / f)
+            th, ti, tv = _value(root / "carried" / results / f)
+            assert (th, ti) == (jh, ji)
+            np.testing.assert_allclose(tv, jv, rtol=1e-7, err_msg=f)
+    if name == "mixture_likelihood":
+        from experiments_torch.curves.mixture_likelihood.summarise import mode_split
+
+        jpls, jparticles = jax_learned["pls-onb-learned"]
+        port = carried["port"]
+        x = np.asarray(data.train.x)
+        noise = jpls.basis.sample_predictive_noise(particles=jparticles, x=jnp.asarray(x), key=0)
+        y = torch.from_numpy(np.asarray(data.train.y))
+        jsplit = mode_split("curve2", torch.as_tensor(np.asarray(
+            jpls.predict_untransformed_samples(particles=jparticles, x=jnp.asarray(x),
+                                               noise=noise))), y, 20.0)
+        tsplit = mode_split("curve2", port["pls"].predict_untransformed_samples(
+            particles=port["particles"], x=torch.from_numpy(x),
+            noise=torch.from_numpy(np.asarray(noise))), y, 20.0)
+        assert tsplit["n_upper"] == jsplit["n_upper"]
+        np.testing.assert_allclose(tsplit["est_shift"], jsplit["est_shift"], rtol=1e-7)
+
+
+def test_pls_values_match_jax_on_carried_draws(run):
+    _assert_carried_run_matches_jax(run)
+
+
+def test_precond_pls_values_match_jax_on_carried_draws(precond_run):
+    _assert_carried_run_matches_jax(precond_run)

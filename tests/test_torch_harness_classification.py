@@ -12,6 +12,11 @@ rows and 30 epochs a class, 2 step-size candidates of at most 2000 steps,
   constant, and every ``svgp`` value.
 - The ``pls-onb`` values are held within a band (see
   ``test_pls_values_within_the_band``).
+- Run again on the JAX main's draws (``tests/torch_parity.Carrier``), from
+  the port's own GP and SVGP checkpoints, the port's main gives every
+  ``pls-onb`` value, the chosen step size, the steps run and the trained
+  particles of the JAX main's
+  (``test_pls_values_match_jax_on_carried_draws``).
 
 Then the port's other mean-constant modes ("gp", "select"), with the
 step-size search replaced by a stand-in, and a rerun that loads the
@@ -22,6 +27,7 @@ import contextlib
 import io
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -36,7 +42,7 @@ from experiments_torch.config import load_config
 from experiments_torch.loaders import load_pls
 from experiments_torch.metrics import concatenate_seed
 from experiments_torch.uci.classification import main as tmain
-from tests.torch_parity import one_thread, to_np
+from tests.torch_parity import Carrier, one_thread, to_np
 
 CONFIG = "experiments/uci/classification/config_precond_smooth.yaml"
 CUTS = {"kernel": dict(number_of_iterations=2, number_of_epochs=30, subsample_size=100),
@@ -77,6 +83,8 @@ def runs(tmp_path_factory):
         jconfig = _cut(yaml.safe_load(f))
     tconfig = _cut(load_config(CONFIG))
     records = {"jax": {}, "torch": {}}
+    carrier = Carrier()
+    runners = {"jax": [], "carried": []}
     out = io.StringIO()
     cwd = os.getcwd()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out), one_thread():
@@ -86,6 +94,11 @@ def runs(tmp_path_factory):
         mp.setattr(jmain, "plot_eigenvalues", lambda *a, **k: None)
         _recording(jmain, records["jax"], mp)
         _recording(tmain, records["torch"], mp)
+        carrier.record_jax(mp)
+        for module, kept in ((jmain, runners["jax"]), (tmain, runners["carried"])):
+            mp.setattr(module, "train_pls_runner",
+                       lambda *a, _fn=module.train_pls_runner, _kept=kept, **k:
+                       _kept.append(_fn(*a, **k)) or _kept[-1])
         try:
             os.chdir(root)  # the JAX main reads experiments/uci/datasets from here
             jmain.main(data_seed=0, dataset_name="rice", outputs_path=str(root / "jax"),
@@ -98,6 +111,17 @@ def runs(tmp_path_factory):
         jmetrics.concatenate_metrics(str(root / "jax" / "0" / "results"), ["train", "test"],
                                      jmain.MODEL_NAMES, ["rice"], jmain.METRICS)
         concatenate_seed(str(root / "torch"), 0, ["rice"], tmain.MODEL_NAMES, tmain.METRICS)
+        # the port's main again on the JAX main's draws, from its own GP and
+        # SVGP checkpoints: only the PLS model trains
+        runners["carried"].clear()
+        shutil.copytree(root / "torch", root / "carried")
+        os.remove(root / "carried" / "0" / "models" / "rice" / "pls-onb.pkl")
+        carrier.carry_port(mp)
+        tmain.main(data_seed=0, dataset_name="rice", outputs_path=str(root / "carried"),
+                   datasets_dir=str(datasets), device="cpu",
+                   **{arg: tconfig[k] for k, arg in SECTIONS.items()})
+        carrier.drained()
+    records["carrier"], records["runners"] = carrier, runners
     return root, records, out.getvalue(), tconfig, datasets
 
 
@@ -190,6 +214,29 @@ def test_pls_values_within_the_band(runs):
             assert abs(tv - jv) <= BAND_ABS[metric], f
         else:
             assert abs(tv - jv) <= BAND_REL[metric] * abs(jv), f
+
+
+def test_pls_values_match_jax_on_carried_draws(runs):
+    """On the JAX main's draws the port's main gives the JAX main's PLS
+    results: each train_pls call's energies and particles, the chosen step
+    size and steps run, and every ``pls-onb`` value at rtol 1e-7."""
+    root, records, _, _, _ = runs
+    carrier, runners = records["carrier"], records["runners"]
+    assert {r["tier"] for r in carrier.jax["train"]} == {"off"}
+    carrier.assert_runs_match(rtol=1e-7)
+    (jp, jlr, jn), = runners["jax"]
+    (tp, tlr, tn), = runners["carried"]
+    assert (tlr, tn) == (jlr, jn)
+    np.testing.assert_allclose(to_np(tp), to_np(jp), rtol=1e-7,
+                               atol=1e-7 * np.abs(to_np(jp)).max())
+    results = os.path.join("0", "results", "rice", "pls-onb")
+    files = sorted(os.listdir(root / "jax" / results))
+    assert len(files) == 12
+    for f in files:
+        jh, ji, jv = _value(root / "jax" / results / f)
+        th, ti, tv = _value(root / "carried" / results / f)
+        assert (th, ti) == (jh, ji)
+        np.testing.assert_allclose(tv, jv, rtol=1e-7, err_msg=f)
 
 
 @pytest.mark.parametrize("mode", ["gp", "select"])

@@ -12,12 +12,18 @@ learning rates of 10 epochs.
   freedom and scale, and every ``svgp*`` value.
 - The ``pls*`` values come from other (seeded) noise in each package and
   are held within a band (see ``test_pls_values_within_the_band``).
+- Run again on the JAX main's draws (``tests/torch_parity.Carrier``: its
+  initial particles, every step's normals, its predictive and observation
+  noise), from the port's own GP and SVGP checkpoints, the port's main
+  gives every ``pls*`` value, chosen step size, steps run and trained
+  particles of the JAX main's (``test_pls_values_match_jax_on_carried_draws``).
 """
 
 import contextlib
 import io
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -30,7 +36,7 @@ from experiments.uci.regression import main as jmain
 from experiments_torch.config import load_config
 from experiments_torch.metrics import concatenate_seed
 from experiments_torch.uci.regression import main as tmain
-from tests.torch_parity import one_thread, to_np
+from tests.torch_parity import Carrier, one_thread, to_np
 
 CONFIG = "experiments/uci/regression/config_precond_map.yaml"
 CUTS = {"kernel": dict(number_of_iterations=2, number_of_epochs=30, subsample_size=100),
@@ -69,6 +75,7 @@ def runs(tmp_path_factory):
         jconfig = _cut(yaml.safe_load(f))
     tconfig = _cut(load_config(CONFIG))
     records = {"jax": {}, "torch": {}}
+    carrier = Carrier()
     out = io.StringIO()
     cwd = os.getcwd()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out), one_thread():
@@ -78,6 +85,9 @@ def runs(tmp_path_factory):
         mp.setattr(jmain, "plot_eigenvalues", lambda *a, **k: None)
         _recording(jmain, records["jax"], mp)
         _recording(tmain, records["torch"], mp)
+        carrier.record_jax(mp)
+        for package, module in (("jax", jmain), ("carried", tmain)):
+            _record_runs(module, records.setdefault(package, {}), mp)
         sections = {k: f"{k}_config" for k in ("kernel", "pls", "svgp", "metrics")}
         sections.update(data="data_config", inducing_points="inducing_points_config")
         try:
@@ -92,7 +102,32 @@ def runs(tmp_path_factory):
         jmetrics.concatenate_metrics(str(root / "jax" / "0" / "results"), ["train", "test"],
                                      jmain.MODEL_NAMES, ["kin8nm"], jmain.METRICS)
         concatenate_seed(str(root / "torch"), 0, ["kin8nm"], tmain.MODEL_NAMES, tmain.METRICS)
-    return root, records, out.getvalue()
+        # the port's main again on the JAX main's draws, from its own GP and
+        # SVGP checkpoints: only the PLS models train
+        records["carried"].clear()
+        shutil.copytree(root / "torch", root / "carried")
+        for name in os.listdir(root / "carried" / "0" / "models" / "kin8nm"):
+            if name.startswith("pls"):
+                os.remove(root / "carried" / "0" / "models" / "kin8nm" / name)
+        carrier.carry_port(mp)
+        tmain.main(data_seed=0, dataset_name="kin8nm", outputs_path=str(root / "carried"),
+                   datasets_dir=str(datasets), device="cpu",
+                   **{arg: tconfig[k] for k, arg in sections.items()})
+        carrier.drained()
+    return root, records, out.getvalue(), carrier
+
+
+def _record_runs(module, record, mp):
+    """Each ``train_pls_runner`` return (particles, step size, steps) of a
+    main, in order."""
+    fn = module.train_pls_runner
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        record.setdefault("train_pls_runner", []).append(out)
+        return out
+
+    mp.setattr(module, "train_pls_runner", wrapper)
 
 
 def _files(top):
@@ -108,7 +143,7 @@ def _value(path):
 
 
 def test_the_port_writes_every_file_of_the_jax_main(runs):
-    root, _, log = runs
+    root, _, log, _ = runs
     jax_files, port_files = _files(root / "jax"), _files(root / "torch")
     assert jax_files == port_files
     csvs = [f for f in jax_files if f.endswith(".csv")]
@@ -123,7 +158,7 @@ def test_the_port_writes_every_file_of_the_jax_main(runs):
 
 
 def test_gp_derived_quantities_match_jax(runs):
-    _, records, _ = runs
+    _, records, _, _ = runs
     j, t = records["jax"], records["torch"]
     for name in ("lengthscales", "outputscale"):
         np.testing.assert_allclose(to_np(getattr(t["construct_average_ard_kernel"], name)),
@@ -144,7 +179,7 @@ def test_gp_derived_quantities_match_jax(runs):
 
 
 def test_svgp_values_match_jax(runs):
-    root, _, _ = runs
+    root, _, _, _ = runs
     results = os.path.join("0", "results")
     files = [f for f in _files(root / "jax" / results) if f.startswith(os.path.join("kin8nm", "svgp"))]
     # svgp and svgp-student: plain and tempered 6 files each, conformalised 12
@@ -177,7 +212,7 @@ BAND = {"mae": 0.4, "mse": 0.4, "nll": 0.4}
 
 
 def test_pls_values_within_the_band(runs):
-    root, _, _ = runs
+    root, _, _, _ = runs
     results = os.path.join("0", "results")
     files = [f for f in _files(root / "jax" / results)
              if f.startswith(os.path.join("kin8nm", "pls"))]
@@ -198,3 +233,32 @@ def test_pls_values_within_the_band(runs):
             assert abs(tv - jv) <= BAND[metric] * abs(jv), f
         else:  # the conformal models' errors and interval widths
             assert 0.5 <= tv / jv <= 2.0, f
+
+
+def test_pls_values_match_jax_on_carried_draws(runs):
+    """On the JAX main's draws the port's main gives the JAX main's PLS
+    results: every train_pls call's energies and particles, each model's
+    chosen step size and steps run, and every ``pls*`` results value at
+    rtol 1e-7. The conformal NLL is NaN where the JAX main's is (a
+    zero-width interval)."""
+    root, records, _, carrier = runs
+    results = os.path.join("0", "results")
+    assert len(carrier.jax["train"]) >= 4
+    assert {r["tier"] for r in carrier.jax["train"]} == {"spectral", "off"}
+    carrier.assert_runs_match(rtol=1e-7)
+    for (jp, jlr, jn), (tp, tlr, tn) in zip(records["jax"]["train_pls_runner"],
+                                            records["carried"]["train_pls_runner"], strict=True):
+        assert (tlr, tn) == (jlr, jn)
+        np.testing.assert_allclose(to_np(tp), to_np(jp), rtol=1e-7,
+                                   atol=1e-7 * np.abs(to_np(jp)).max())
+    files = [f for f in _files(root / "jax" / results)
+             if f.startswith(os.path.join("kin8nm", "pls"))]
+    assert len(files) == 2 * (6 + 6 + 12)
+    for f in files:
+        jh, ji, jv = _value(root / "jax" / results / f)
+        th, ti, tv = _value(root / "carried" / results / f)
+        assert (th, ti) == (jh, ji)
+        if math.isnan(jv):
+            assert math.isnan(tv), f
+        else:
+            np.testing.assert_allclose(tv, jv, rtol=1e-7, err_msg=f)

@@ -31,6 +31,7 @@ FILES = sorted((ROOT / "projected_langevin_sampling_torch").rglob("*.py")) + HAR
     ROOT / "scripts" / "curve_mains.py",
     ROOT / "scripts" / "slice8_tools.py",
     ROOT / "scripts" / "parallel_main_cards.py",
+    ROOT / "scripts" / "card_draws_replay.py",
 ]
 
 

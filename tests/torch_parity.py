@@ -6,6 +6,7 @@ fp64."""
 from __future__ import annotations
 
 import contextlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -315,3 +316,308 @@ def jax_svgp(likelihood="gaussian", pls=False, fitted=True, d=1, m=6):
     if likelihood == "bernoulli":
         y = (y > 0).astype(np.float64)
     return svgp, x, y
+
+
+# --- the carrier: a JAX main's PLS draws in the port's main -------------------
+def jax_run_normals(key, num_steps: int, shape, dtype, rotation=None):
+    """``draw(start, n)`` for ``NoiseChunks``: the standard normals of steps
+    start .. start + n - 1 of a JAX ``train_pls`` run on ``key``, as its scans
+    draw them (``training.py:707``, ``:838``, ``:900``, ``:944``): keys
+    ``split(key, T)``, or for a run longer than ``_SCAN_CHUNK_STEPS``
+    ``split(fold_in(key, c), n_c)`` of chunk c (``:1063``), and
+    ``normal(key_t, shape, dtype)``. ``rotation`` (M, M) maps each step's
+    normals (the spectral tier's W-space draws into the U coordinates that
+    the port's tier rotates back)."""
+    from projected_langevin_sampling_tpu import training as jtraining
+
+    limit = jtraining._SCAN_CHUNK_STEPS
+    segment = limit if num_steps > limit else max(num_steps, 1)
+    normals = jax.jit(jax.vmap(lambda k: jax.random.normal(k, tuple(shape), dtype=dtype)))
+    cached = {}
+
+    def keys_of(c):
+        if c not in cached:
+            cached.clear()
+            base = key if num_steps <= limit else jax.random.fold_in(key, c)
+            cached[c] = jax.random.split(base, min(segment, num_steps - c * segment))
+        return cached[c]
+
+    def draw(start: int, n: int) -> torch.Tensor:
+        parts, t = [], start
+        while t < start + n:
+            c, i = divmod(t, segment)
+            keys = keys_of(c)
+            m = min(start + n - t, keys.shape[0] - i)
+            parts.append(np.asarray(normals(keys[i:i + m]), dtype=np.float64))
+            t += m
+        z = np.concatenate(parts)
+        if rotation is not None:
+            z = rotation[None] @ z
+        return torch.from_numpy(z)
+
+    return draw
+
+
+def _w_noise_rotation(jtraining, basis, cost, discretisation):
+    """The spectral tier's W-space draws eps as the U-space normals z with
+    ``q_noise^T z = eps``, ``q_noise`` as the port's tier forms it from the
+    JAX package's own factors (``training.py:_train_pls_loop``)."""
+    sigma, q_in, q_out, b_rot, e_const = (
+        np.asarray(a, dtype=np.float64)
+        for a in jtraining.spectral_system_host(basis, cost, discretisation))
+    if discretisation == "preconditioned":
+        q_noise = np.sqrt(np.asarray(basis.eigenvalues, dtype=np.float64))[:, None] * q_in
+    elif hasattr(basis, "noise_factor"):
+        q_noise = np.asarray(basis.noise_factor, dtype=np.float64).T @ q_in
+    else:
+        q_noise = q_in
+    return np.linalg.inv(q_noise.T)
+
+
+class Carrier:
+    """Records every PLS draw of a JAX main and feeds it to the port's main.
+
+    :meth:`record_jax` wraps, for the JAX main's run: the trainer's
+    ``train_pls`` (each call's key, steps, step size, tier and
+    discretisation, its initial and final particles and energies; for the
+    spectral tier the rotation of its W-space draws), ``PLS.initialise_particles``,
+    the bases' ``sample_predictive_noise`` (the extra predictive noise
+    included) and the costs' ``sample_observation_noise``. :meth:`carry_port`
+    wraps the port's counterparts for a run of the port's main: each takes
+    the next recorded JAX draw of its kind in order (the port's own draw is
+    made and replaced, so its shape and dtype are checked), and each
+    ``train_pls`` call runs on the JAX call's normals of every step through
+    ``_train_pls_loop(noise=NoiseChunks(...))``, after checking that its
+    steps, step size, seed, tier and discretisation are the JAX call's.
+    :meth:`drained` checks that the port's main took every draw."""
+
+    KINDS = ("train", "init", "predictive", "observation")
+
+    def __init__(self, start_rtol=1e-7):
+        # each port call's initial particles against the JAX call's: carried
+        # draws through bases that differ by the GP fits' error (fp32 fits
+        # part by more than fp64's 1e-8)
+        self.start_rtol = start_rtol
+        self.jax = {k: [] for k in self.KINDS}
+        self.port_train = []
+        self._muted = False
+
+    def record_jax(self, mp):
+        from experiments import trainers as jtrainers
+        from projected_langevin_sampling_tpu import training as jtraining
+        from projected_langevin_sampling_tpu.models import pls as jpls
+        from projected_langevin_sampling_tpu.models.basis import inducing_point as jipb
+        from projected_langevin_sampling_tpu.models.basis import orthonormal as jonb
+        from projected_langevin_sampling_tpu.models.costs import base as jcost_base
+
+        original_train = jtrainers._train_pls
+
+        def train(pls, particles, number_of_epochs, step_size, early_stopper_patience,
+                  seed, fast_path="auto", discretisation="euler"):
+            basis, cost = pls.basis, pls.cost
+            if jtraining.needs_w_space_reroute(basis, fast_path, discretisation):
+                basis = jtraining.ipb_w_space_view(basis)[0]
+            tier = jtraining.resolve_tier(basis, cost, fast_path, discretisation,
+                                          particles_bytes=particles.dtype.itemsize * particles.size)
+            tier = {"spectral_fused": "spectral"}.get(tier, tier)
+            rotation = (_w_noise_rotation(jtraining, basis, cost, discretisation)
+                        if tier == "spectral" else None)
+            out, energies = original_train(
+                pls=pls, particles=particles, number_of_epochs=number_of_epochs,
+                step_size=step_size, early_stopper_patience=early_stopper_patience, seed=seed,
+                fast_path=fast_path, discretisation=discretisation)
+            self.jax["train"].append(dict(
+                seed=seed, steps=int(number_of_epochs), step_size=float(step_size), tier=tier,
+                discretisation=discretisation, dtype=particles.dtype, rotation=rotation,
+                shape=(basis.approximation_dimension, particles.shape[1]),
+                particles_in=to_np(particles), particles=to_np(out), energies=list(energies)))
+            return out, energies
+
+        mp.setattr(jtrainers, "_train_pls", train)
+        original_predict = jpls.PLS.predict
+
+        def predict(obj, *args, **kwargs):
+            # the step search's train-split prediction, which only a metric
+            # other than the final energy reads: the port's search makes it
+            # only then (experiments_torch/runners.py:_search_metric)
+            caller = sys._getframe(1)
+            unread = (caller.f_code.co_name == "train_pls_runner"
+                      and caller.f_locals.get("metric_to_optimise") == "loss")
+            before, self._muted = self._muted, unread
+            try:
+                return original_predict(obj, *args, **kwargs)
+            finally:
+                self._muted = before
+
+        mp.setattr(jpls.PLS, "predict", predict)
+        self._record(mp, jpls.PLS, "initialise_particles", "init")
+        self._record(mp, jonb.OrthonormalBasis, "sample_predictive_noise", "predictive")
+        self._record(mp, jipb.InducingPointBasis, "sample_predictive_noise", "predictive")
+        self._record(mp, jcost_base.PLSCostMixin, "sample_observation_noise", "observation")
+
+    def _record(self, mp, cls, name, kind):
+        original = getattr(cls, name)
+
+        def wrapper(obj, *args, **kwargs):
+            out = original(obj, *args, **kwargs)
+            if not self._muted:
+                self.jax[kind].append(to_np(out))
+            return out
+
+        mp.setattr(cls, name, wrapper)
+
+    def carry_port(self, mp):
+        from experiments_torch import trainers as ttrainers
+        from projected_langevin_sampling_torch import training as ttraining
+        from projected_langevin_sampling_torch.models import pls as tpls
+        from projected_langevin_sampling_torch.models.basis import inducing_point as tipb
+        from projected_langevin_sampling_torch.models.basis import orthonormal as tonb
+        from projected_langevin_sampling_torch.models.costs import base as tcost_base
+        from projected_langevin_sampling_torch.utils.early_stopper import NoiseChunks
+
+        queues = {k: list(v) for k, v in self.jax.items()}
+        self.queues = queues
+        current = []
+        original_train, original_loop = ttrainers._train_pls, ttraining._train_pls_loop
+
+        def train(pls, particles, number_of_epochs, step_size, early_stopper_patience,
+                  seed, fast_path="auto", discretisation="euler"):
+            rec = queues["train"].pop(0)
+            got = (int(number_of_epochs), float(step_size), seed, discretisation)
+            want = (rec["steps"], rec["step_size"], rec["seed"], rec["discretisation"])
+            assert got == want, f"the port's train_pls call {got} is not the JAX main's {want}"
+            start = rec["particles_in"]
+            np.testing.assert_allclose(to_np(particles), start, rtol=self.start_rtol,
+                                       atol=self.start_rtol * np.abs(start).max())
+            current.append(rec)
+            out, energies = original_train(
+                pls=pls, particles=particles, number_of_epochs=number_of_epochs,
+                step_size=step_size, early_stopper_patience=early_stopper_patience, seed=seed,
+                fast_path=fast_path, discretisation=discretisation)
+            self.port_train.append(dict(particles=to_np(out), energies=list(energies)))
+            return out, energies
+
+        def loop(basis, cost, particles, step_size, patience, number_of_epochs, tier, *args,
+                 **kwargs):
+            rec = current.pop()
+            assert tier == rec["tier"], f"the port runs the {tier} tier, JAX the {rec['tier']}"
+            assert tuple(particles.shape) == rec["shape"]
+            m, j = rec["shape"]
+            draw = jax_run_normals(jax.random.key(rec["seed"]), number_of_epochs, rec["shape"],
+                                   rec["dtype"], rec["rotation"])
+            kwargs["noise"] = NoiseChunks(
+                lambda s, n: draw(s, n).to(particles.dtype), number_of_epochs,
+                chunk_steps=max(1, 2**22 // (m * j)))
+            return original_loop(basis, cost, particles, step_size, patience, number_of_epochs,
+                                 tier, *args, **kwargs)
+
+        mp.setattr(ttrainers, "_train_pls", train)
+        mp.setattr(ttraining, "_train_pls_loop", loop)
+        if hasattr(self, "_port_init"):
+            mp.setattr(self._port_init[0], "generate_init_particles", self._port_init[1])
+        for module, name, port_build in getattr(self, "_port_bases", []):
+            mp.setattr(module, name, port_build)
+        self._replay(mp, tpls.PLS, "initialise_particles", "init")
+        self._replay(mp, tonb.OrthonormalBasis, "sample_predictive_noise", "predictive")
+        self._replay(mp, tipb.InducingPointBasis, "sample_predictive_noise", "predictive")
+        self._replay(mp, tcost_base.PLSCostMixin, "sample_observation_noise", "observation")
+
+    def _replay(self, mp, cls, name, kind):
+        original = getattr(cls, name)
+
+        def wrapper(obj, *args, **kwargs):
+            own = original(obj, *args, **kwargs)
+            if self._muted:
+                return own
+            value = self.queues[kind].pop(0)
+            n = len(self.jax[kind]) - len(self.queues[kind])
+            assert tuple(own.shape) == value.shape, (
+                f"the port's draw {n} of kind {kind} has shape {tuple(own.shape)}, "
+                f"the JAX main's {value.shape}")
+            return torch.as_tensor(value, dtype=own.dtype, device=own.device)
+
+        mp.setattr(cls, name, wrapper)
+
+    def mute(self, mp, module, name):
+        """Leave the draws of ``module.name`` out: the JAX main's plot
+        runners, which the tests replace, and the port's counterparts,
+        whose predictions go only into plots."""
+        if not hasattr(module, name):
+            return
+        fn = getattr(module, name)
+
+        def muted(*args, **kwargs):
+            before, self._muted = self._muted, True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._muted = before
+
+        mp.setattr(module, name, muted)
+
+    def carry_init_normals(self, mp, jmodule, tmodule):
+        """The mixture main's initial normals: ``generate_init_particles``
+        draws its (M_k, J) normals from the key ``pls.seed`` in the JAX main
+        and takes them as ``normals`` in the port's."""
+        jgenerate, tgenerate = jmodule.generate_init_particles, tmodule.generate_init_particles
+        kept = self.jax.setdefault("init_normals", [])
+
+        def jax_generate(*args, key=0, **kwargs):
+            shape = (kwargs["approximation_dimension"], kwargs["number_of_particles"])
+            kept.append(to_np(jax.random.normal(jax.random.key(key), shape,
+                                                dtype=kwargs["basis_eigenvalues"].dtype)))
+            return jgenerate(*args, key=key, **kwargs)
+
+        def port_generate(*args, **kwargs):
+            kwargs["normals"] = torch.from_numpy(self.queues["init_normals"].pop(0))
+            return tgenerate(*args, **kwargs)
+
+        mp.setattr(jmodule, "generate_init_particles", jax_generate)
+        self._port_init = (tmodule, port_generate)
+
+    def assert_runs_match(self, rtol=1e-7):
+        """Every port train_pls call gave its JAX call's energies and
+        particles at ``rtol`` (particles with an atol of rtol times the
+        largest)."""
+        assert len(self.port_train) == len(self.jax["train"]) > 0
+        for i, (jrun, trun) in enumerate(zip(self.jax["train"], self.port_train)):
+            assert len(trun["energies"]) == len(jrun["energies"]), i
+            np.testing.assert_allclose(trun["energies"], jrun["energies"], rtol=rtol,
+                                       err_msg=f"train_pls call {i}")
+            np.testing.assert_allclose(trun["particles"], jrun["particles"], rtol=rtol,
+                                       atol=rtol * np.abs(jrun["particles"]).max(),
+                                       err_msg=f"train_pls call {i}")
+
+    def carry_bases(self, mp, jmodule, tmodule):
+        """The JAX main's bases in the port's main: each
+        ``build_orthonormal_basis`` or ``build_inducing_point_basis`` call of
+        ``tmodule`` returns the JAX main's basis of the same call, carried
+        across (fp64). Takes the GP fits' differences out of a comparison."""
+        for name, params, from_numpy in (
+                ("build_orthonormal_basis", basis_params, convert.orthonormal_basis_from_numpy),
+                ("build_inducing_point_basis", ipb_params,
+                 convert.inducing_point_basis_from_numpy)):
+            if not hasattr(jmodule, name):
+                continue
+            kept = self.jax.setdefault(name, [])
+
+            def jax_build(*args, _fn=getattr(jmodule, name), _kept=kept, _params=params,
+                          **kwargs):
+                out = _fn(*args, **kwargs)
+                _kept.append(_params(out))
+                return out
+
+            def port_build(*args, _fn=getattr(tmodule, name), _name=name,
+                           _from_numpy=from_numpy, **kwargs):
+                own = _fn(*args, **kwargs)
+                carried = _from_numpy(self.queues[_name].pop(0), device=own.device)
+                return carried.replace(
+                    additional_predictive_noise_distribution=getattr(
+                        own, "additional_predictive_noise_distribution", None))
+
+            mp.setattr(jmodule, name, jax_build)
+            self._port_bases = getattr(self, "_port_bases", []) + [(tmodule, name, port_build)]
+
+    def drained(self):
+        left = {k: len(v) for k, v in self.queues.items() if v}
+        assert not left, f"JAX draws the port's main never took: {left}"
