@@ -2,8 +2,8 @@
 replayed on the CPU with the card's own draws.
 
 ``--record`` runs ``scripts/curve_mains.py``'s ``run_mixture_precond`` on the
-card (or ``--device``; eager steps, so that each step's draw can be kept)
-and saves into ``--file``: the exact GP's fitted parameters, and for each ``train_pls`` call
+card (eager steps, so that each step's draw can be kept) and saves into
+``--file``: the exact GP's fitted parameters, and for each ``train_pls`` call
 its initial particles, every step's update normals, its final particles and
 energies. ``--replay`` runs the same main on the CPU, its exact GP fitted
 anew, each call fed the card's normals of that call, and prints the largest
@@ -90,11 +90,10 @@ def main(argv=None) -> None:
     what.add_argument("--record", action="store_true", help="run on the card, save the draws")
     what.add_argument("--replay", action="store_true", help="run on the CPU on the saved draws")
     parser.add_argument("--file", required=True)
-    parser.add_argument("--device", default="cuda", help="--record's device")
     args = parser.parse_args(argv)
     work = os.path.join(ROOT, "build", "draws_replay")
     if args.record:
-        record = run(args.device, os.path.join(work, args.device), None)
+        record = run("cuda", os.path.join(work, "cuda"), None)
         np.savez(args.file, **record)
         print(json.dumps({"gp": json.loads(record["gp"]), "result": json.loads(record["result"]),
                           "calls": sum(k.startswith("draws_") for k in record)}))

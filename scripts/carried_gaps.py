@@ -30,7 +30,10 @@ fits' differences (rtol 1e-8) out of the comparison.
 
 Each model's GP fits are saved under ``--out`` and reloaded by a rerun of the
 same case and precision (``--fresh`` fits them again); PLS always trains
-anew. Prints one JSON line, also written to ``<out>/<case>-<n>-<dtype>.json``.
+anew. Prints one JSON line, also written to ``<out>/<case>-<n>-<dtype>.json``;
+for iris it holds both GP fits' loss traces compared (the early stops) and
+each step-size candidate's final energies, which ``--report`` prints again
+for a case already run, from what it saved under ``--out``.
 ``--threads`` sets both packages' host threads (default 2), so that several
 cases can run side by side.
 """
@@ -66,14 +69,6 @@ def _setup(dtype: str, threads: int):
     torch.set_num_threads(threads)
 
 
-def _clear_pls(top):
-    """The PLS checkpoints under ``top``: PLS trains anew, GPs reload."""
-    for d, _, files in os.walk(top):
-        for f in files:
-            if f.startswith("pls") and f.endswith(".pkl"):
-                os.remove(os.path.join(d, f))
-
-
 def _mute_plots(mp, modules, learned):
     """No plots; the learned models' (pls, particles) kept by name."""
     for module in modules:
@@ -86,14 +81,6 @@ def _mute_plots(mp, modules, learned):
                        learned.__setitem__(particle_name, (pls, particles)))
         if hasattr(module, "plot_eigenvalues"):
             mp.setattr(module, "plot_eigenvalues", lambda *a, **k: None)
-
-
-def _runs(mp, module, kept):
-    """Each ``train_pls_runner`` return (particles, step size, steps) of a main."""
-    if hasattr(module, "train_pls_runner"):
-        fn = module.train_pls_runner
-        mp.setattr(module, "train_pls_runner",
-                   lambda *a, _fn=fn, **k: kept.append(_fn(*a, **k)) or kept[-1])
 
 
 def _to_port(data, dtype):
@@ -166,6 +153,80 @@ def _save_energies(carrier, path):
                 enumerate(carrier.port_train)})
 
 
+def _gp_fit_report(jout, tout):
+    """The two mains' exact-GP fits side by side, from their checkpoints:
+    epochs run, the largest relative difference of the fitted
+    hyperparameters, each fit's last five improvements of its running
+    minimum loss as (epoch, margin) (the stopper starts its patience again
+    on any improvement, however small), the largest gap between the two
+    loss traces up to each fit's last improvement, and the first epoch at
+    which that gap exceeds the largest of those margins."""
+    import pickle
+
+    import numpy as np
+
+    path = ("models", "iris_petal", "subsample_gp", "full_exact_gp_1_of_1.pkl")
+    fits = []
+    for top in (jout, tout):
+        seed_dir, = [d for d in os.listdir(top) if d.isdigit()]
+        with open(os.path.join(top, seed_dir, *path), "rb") as f:
+            fits.append(pickle.load(f))
+    losses = [np.asarray(fit["losses"], dtype=np.float64) for fit in fits]
+    improvements = []
+    for trace in losses:
+        before = np.concatenate([[np.inf], np.minimum.accumulate(trace)[:-1]])
+        epochs = np.flatnonzero(trace < before)[1:][-5:]
+        improvements.append([[int(e), float(before[e] - trace[e])] for e in epochs])
+    n = min(map(len, losses))
+    gap = np.abs(losses[0][:n] - losses[1][:n])
+    largest_margin = max(m for kept in improvements for _, m in kept)
+    hyper = ("lengthscales", "outputscale", "noise", "mean_constant")
+    return {
+        "epochs": [len(trace) for trace in losses],
+        "hyperparameters_max_rel": max(
+            float(np.max(np.abs(np.asarray(fits[1][k], dtype=np.float64)
+                                - np.asarray(fits[0][k], dtype=np.float64))
+                         / np.abs(np.asarray(fits[0][k], dtype=np.float64)))) for k in hyper),
+        "last_improvements": dict(zip(("jax", "port"), improvements)),
+        "loss_gap_max_to_last_improvement": {
+            who: float(gap[:kept[-1][0] + 1].max())
+            for who, kept in zip(("jax", "port"), improvements)},
+        "first_epoch_gap_above_margins": int(np.argmax(gap > largest_margin))
+        if (gap > largest_margin).any() else None}
+
+
+def _candidate_report(path):
+    """Each step-size candidate's final energy in both mains, and the
+    relative gap between their energies at steps 1, 10, 100, ... and the
+    last: where two runs of the same candidate start apart, and how the gap
+    grows with the steps."""
+    import numpy as np
+
+    with np.load(path) as saved:
+        count = sum(k.startswith("jax_") for k in saved.files)
+        runs = [(saved[f"jax_{i}"].astype(np.float64), saved[f"port_{i}"].astype(np.float64))
+                for i in range(count)]
+    gaps = []
+    for j, t in runs:
+        n = min(len(j), len(t))
+        steps = sorted({10**k for k in range(len(str(n))) if 10**k <= n} | {n})
+        gaps.append({s: float(abs(t[s - 1] - j[s - 1]) / abs(j[s - 1])) for s in steps})
+    return {"final_energies": {"jax": [float(j[-1]) for j, _ in runs],
+                               "port": [float(t[-1]) for _, t in runs]},
+            "energy_rel_by_step": gaps}
+
+
+def iris_report(seed, dtype, work, carry_gps=False):
+    """The GP fits and the step-size candidates of an iris case already
+    run, from what it saved under ``work``."""
+    tag = "-jaxgps" if carry_gps else ""
+    energies = os.path.join(work, f"energies{tag}-{dtype}.npz")
+    return {"case": "iris_petal", "seed": seed, "dtype": dtype, "carried_gps": carry_gps,
+            "gp_fits": _gp_fit_report(os.path.join(work, f"jax-{dtype}"),
+                                      os.path.join(work, f"port-{dtype}{tag}")),
+            "candidates": _candidate_report(energies) if os.path.exists(energies) else None}
+
+
 def _steps(runs):
     return [{"step_size": lr, "steps": n} for _, lr, n in runs]
 
@@ -195,7 +256,7 @@ def run_curve(main_name, config_path, curve, dtype, work, fresh, skip_svgp=False
     from experiments_torch.config import load_config
     from experiments_torch.curves import common as tcommon
     from experiments_torch.curves.curves import CURVE_FUNCTIONS as TCURVES
-    from tests.torch_parity import Carrier
+    from tests.torch_parity import Carrier, drop_pls_checkpoints
 
     jmain = __import__(f"experiments.curves.{main_name}.main", fromlist=["main"])
     tmain = __import__(f"experiments_torch.curves.{main_name}.main", fromlist=["main"])
@@ -208,20 +269,17 @@ def run_curve(main_name, config_path, curve, dtype, work, fresh, skip_svgp=False
     for top in (jout, tout):
         if fresh:
             shutil.rmtree(top, ignore_errors=True)
-        _clear_pls(top)
+        drop_pls_checkpoints(top)
     carrier, learned, data = Carrier(1e-7 if dtype == "float64" else 1e-2), {}, []
-    runs = {"jax": [], "port": []}
     seconds = {}
     log = io.StringIO()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(log):
         _mute_plots(mp, (jplotters, jmain, jcommon), learned)
-        carrier.record_jax(mp)
+        carrier.record_jax(mp, [jmain, jcommon])
         if main_name == "mixture_likelihood":
             carrier.carry_init_normals(mp, jmain, tmain)
         if carry_bases:
             carrier.carry_bases(mp, jmain, tmain)
-        for module in (jmain, jcommon):
-            _runs(mp, module, runs["jax"])
         if skip_svgp:
             for module in (jmain, tmain):
                 mp.setattr(module, "train_svgp_runner", lambda *a, **k: (None, None, None))
@@ -240,9 +298,8 @@ def run_curve(main_name, config_path, curve, dtype, work, fresh, skip_svgp=False
                    **{arg: jconfig[k] for k, arg in sections.items()})
         seconds["jax"] = time.time() - t0
         mp.setattr(tmain, "get_experiment_data", lambda *a, **k: _to_port(data[-1], tdtype))
-        carrier.carry_port(mp)
+        carrier.carry_port(mp, [tmain, tcommon])
         for module in (tmain, tcommon):
-            _runs(mp, module, runs["port"])
             carrier.mute(mp, module, "predict_pls_1d_particles_runner")
         t0 = time.time()
         port = tmain.main(curve_function=TCURVES[curve - 1], outputs_path=tout, device="cpu",
@@ -252,11 +309,12 @@ def run_curve(main_name, config_path, curve, dtype, work, fresh, skip_svgp=False
     _save_energies(carrier, os.path.join(work, f"energies-{dtype}.npz"))
     result = {"main": main_name, "config": config_path, "curve": curve, "dtype": dtype,
               "data": "port" if port_data else "jax", "carried_bases": carry_bases,
-              "jax_steps": _steps(runs["jax"]), "port_steps": _steps(runs["port"]),
+              "jax_steps": _steps(carrier.runners["jax"]),
+              "port_steps": _steps(carrier.runners["port"]),
               "jax_values": _csv_values(jout), "port_values": _csv_values(tout),
               "seconds": seconds}
     pairs = [(np.asarray(j[0]), np.asarray(t[0].detach().cpu())) for j, t in
-             zip(runs["jax"], runs["port"])]
+             zip(carrier.runners["jax"], carrier.runners["port"])]
     result["particles_max_rel"] = [
         float(np.max(np.abs(t - j)) / max(np.max(np.abs(j)), 1e-300)) for j, t in pairs]
     energies = [(j["energies"], t["energies"]) for j, t in
@@ -303,7 +361,7 @@ def run_iris(seed, dtype, work, fresh, datasets_dir, carry_gps=False):
     from experiments.uci.regression import main as jmain
     from experiments_torch.config import load_config
     from experiments_torch.uci.regression import main as tmain
-    from tests.torch_parity import Carrier
+    from tests.torch_parity import Carrier, drop_pls_checkpoints
 
     with open(IRIS_CONFIG) as f:
         jconfig = yaml.safe_load(f)
@@ -315,19 +373,17 @@ def run_iris(seed, dtype, work, fresh, datasets_dir, carry_gps=False):
     for top in (jout, tout):
         if fresh:
             shutil.rmtree(top, ignore_errors=True)
-        _clear_pls(top)
+        drop_pls_checkpoints(top)
     jdata = os.path.join(work, "experiments", "uci", "datasets")
     os.makedirs(jdata, exist_ok=True)
     shutil.copy(os.path.join(datasets_dir, "iris_petal.csv"), jdata)
     carrier, learned = Carrier(1e-7 if dtype == "float64" else 1e-2), {}
-    runs = {"jax": [], "port": []}
     seconds = {}
     log = io.StringIO()
     cwd = os.getcwd()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(log):
         _mute_plots(mp, (jplotters, jmain), learned)
-        carrier.record_jax(mp)
-        _runs(mp, jmain, runs["jax"])
+        carrier.record_jax(mp, [jmain])
         t0 = time.time()
         try:
             os.chdir(work)  # the JAX main reads experiments/uci/datasets from here
@@ -339,8 +395,7 @@ def run_iris(seed, dtype, work, fresh, datasets_dir, carry_gps=False):
         seconds["jax"] = time.time() - t0
         if carry_gps:
             _carry_gp_checkpoints(jout, tout)
-        carrier.carry_port(mp)
-        _runs(mp, tmain, runs["port"])
+        carrier.carry_port(mp, [tmain])
         t0 = time.time()
         tmain.main(data_seed=seed, dataset_name="iris_petal", outputs_path=tout,
                    models_filter={"pls-onb"}, datasets_dir=datasets_dir, device="cpu",
@@ -348,11 +403,13 @@ def run_iris(seed, dtype, work, fresh, datasets_dir, carry_gps=False):
                    **{arg: tconfig[k] for k, arg in sections.items()})
         seconds["port"] = time.time() - t0
         carrier.drained()
-    _save_energies(carrier, os.path.join(work, f"energies-{dtype}.npz"))
+    tag = "-jaxgps" if carry_gps else ""
+    _save_energies(carrier, os.path.join(work, f"energies{tag}-{dtype}.npz"))
     energies = [(j["energies"], t["energies"]) for j, t in
                 zip(carrier.jax["train"], carrier.port_train)]
-    return {"case": "iris_petal", "seed": seed, "dtype": dtype, "carried_gps": carry_gps,
-            "jax_steps": _steps(runs["jax"]), "port_steps": _steps(runs["port"]),
+    return {**iris_report(seed, dtype, work, carry_gps),
+            "jax_steps": _steps(carrier.runners["jax"]),
+            "port_steps": _steps(carrier.runners["port"]),
             "jax_values": _csv_values(os.path.join(jout, str(seed), "results")),
             "port_values": _csv_values(os.path.join(tout, str(seed), "results")),
             "energies_max_rel": [
@@ -386,7 +443,14 @@ def main(argv=None):
                         "too (the GP fits' differences taken out)")
     parser.add_argument("--skip_svgp", action="store_true",
                         help="--case curve: leave the regression main's SVGP out of both")
+    parser.add_argument("--report", action="store_true",
+                        help="--case iris: print the GP fits and step-size candidates of a "
+                        "case already run, from what it saved, and run nothing")
     args = parser.parse_args(argv)
+    if args.report:
+        work = os.path.abspath(os.path.join(args.out, f"iris-{args.seed}"))
+        print(json.dumps(iris_report(args.seed, args.dtype, work, args.carry_gps)))
+        return
     _setup(args.dtype, args.threads)
     if args.case == "iris":
         name = f"iris-{args.seed}"

@@ -183,18 +183,20 @@ def run_mixture(outputs: str, device) -> dict:
 MIXTURE_PRECOND = "experiments_torch/curves/mixture_likelihood/config_precond_short.yaml"
 
 
-def run_mixture_precond(outputs: str, device, curve: int = 1, pls_seed: int = 0) -> dict:
+def run_mixture_precond(outputs: str, device, curve: int = 1, pls_seed: int = 0,
+                        dtype: torch.dtype = torch.float64) -> dict:
     """The mixture main at ``config_precond_short.yaml`` (the preconditioned
-    config, GP epochs cut) on ``curve`` with PLS seed ``pls_seed``: the mode
-    split and estimated shift of its particles (summarise's split of their
-    train predictions, taken without predictive noise, whose one draw would
-    differ between the CPU's generator and the card's for every seed), and
-    its NLL, the mixture likelihood's negative log a train point averaged
-    over the particles (the cost of the same predictions)."""
+    config, GP epochs cut) on ``curve`` with PLS seed ``pls_seed`` in
+    ``dtype``: the mode split and estimated shift of its particles
+    (summarise's split of their train predictions, taken without predictive
+    noise, whose one draw would differ between the CPU's generator and the
+    card's for every seed), and its NLL, the mixture likelihood's negative
+    log a train point averaged over the particles (the cost of the same
+    predictions)."""
     config = load_config(os.path.join(ROOT, MIXTURE_PRECOND))
     config["pls"]["seed"] = pls_seed
     out = mixture.main(curve_function=CURVE_FUNCTIONS[curve - 1], outputs_path=outputs,
-                       device=device, **_sections(config))
+                       device=device, dtype=dtype, **_sections(config))
     pls, particles, train = out["pls"], out["particles"], out["experiment_data"].train
     predictions = pls.basis.calculate_untransformed_train_prediction_samples(particles)
     split = summarise.mode_split(f"curve{curve}", predictions, train.y,
@@ -338,7 +340,7 @@ def main() -> None:
     parser.add_argument("--deadline", type=float, default=None,
                         help="seconds after which the pieces still running are stopped")
     parser.add_argument("--dtype", type=str, default="float64", choices=("float64", "float32"),
-                        help="the mains' --dtype (--full)")
+                        help="the mains' --dtype (--full and --mixture_bands)")
     parser.add_argument("--mixture_bands", type=str, default=None, metavar="SEEDS",
                         help="only run_mixture_precond on --curves' first curve over these "
                         "PLS seeds (e.g. 0-4): a JSON line each, then the ranges")
@@ -349,7 +351,7 @@ def main() -> None:
         for seed in _curves(args.mixture_bands):
             start = time.perf_counter()
             row = run_mixture_precond(os.path.join(args.out, f"seed{seed}"), args.device, curve,
-                                      seed)
+                                      seed, getattr(torch, args.dtype))
             rows.append(row)
             print(json.dumps({"pls_seed": seed, "seconds": time.perf_counter() - start, **row}),
                   flush=True)

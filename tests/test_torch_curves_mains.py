@@ -50,7 +50,7 @@ from experiments_torch.curves.mixture_likelihood import main as tmixture
 from experiments_torch.curves.poisson_regression import main as tpoisson
 from experiments_torch.curves.regression import main as tregression
 from experiments_torch.data import Data, ExperimentData, ProblemType
-from tests.torch_parity import Carrier, one_thread, to_np
+from tests.torch_parity import Carrier, drop_pls_checkpoints, one_thread, to_np
 
 CURVE = 2
 MAINS = {
@@ -108,8 +108,8 @@ def _record(module, name, record, mp):
 def run_both(name, root, pls_seed=0, config_path=None, own_draws=True):
     """The JAX main, then the port's on its data (with ``own_draws``), then
     the port's again on the JAX main's draws (``records["carried"]``: the
-    carrier, each main's ``train_pls_runner`` returns and the port main's
-    return), under ``root``; returns (name, root, records, the JAX main's
+    carrier, which keeps each main's ``train_pls_runner`` returns, and the
+    port main's return), under ``root``; returns (name, root, records, the JAX main's
     models by prediction name, the JAX data, the port main's return, the
     log)."""
     jmain, tmain, default_config = MAINS[name]
@@ -119,7 +119,7 @@ def run_both(name, root, pls_seed=0, config_path=None, own_draws=True):
     tconfig = cut(load_config(config_path), pls_seed)
     sections = {k: f"{k}_config" for k in jconfig}
     records = {"jax": {}, "torch": {}}
-    carrier, runners = Carrier(), {"jax": {}, "carried": {}}
+    carrier = Carrier()
     jax_learned, jax_data = {}, []
     log = io.StringIO()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(log), one_thread():
@@ -145,11 +145,9 @@ def run_both(name, root, pls_seed=0, config_path=None, own_draws=True):
                    lambda *a, _fn=jmain.get_experiment_data, **k: jax_data.append(_fn(*a, **k))
                    or jax_data[-1])
         mp.setattr(tmain, "get_experiment_data", lambda *a, **k: to_port(jax_data[-1]))
-        carrier.record_jax(mp)
+        carrier.record_jax(mp, [jmain, jcommon])
         if name == "mixture_likelihood":
             carrier.carry_init_normals(mp, jmain, tmain)
-        for module in (jmain, jcommon):
-            _record(module, "train_pls_runner", runners["jax"], mp)
         if name == "mixture_likelihood":
             # the JAX main's initial normals, (M_k, J) from the key pls.seed
             def carried_init(*, approximation_dimension, number_of_particles, generator,
@@ -174,16 +172,12 @@ def run_both(name, root, pls_seed=0, config_path=None, own_draws=True):
             # the carried run starts from the port's own GP and SVGP
             # checkpoints: only the PLS models train
             shutil.copytree(root / "torch", root / "carried")
-            for d, _, fs in os.walk(root / "carried"):
-                for f in fs:
-                    if f.startswith("pls") and f.endswith(".pkl"):
-                        os.remove(os.path.join(d, f))
-        carrier.carry_port(mp)
+            drop_pls_checkpoints(root / "carried")
+        carrier.carry_port(mp, [tmain, tcommon])
         for module in (tmain, tcommon):
-            _record(module, "train_pls_runner", runners["carried"], mp)
             carrier.mute(mp, module, "predict_pls_1d_particles_runner")
         own = {k: list(v) for k, v in records["torch"].items()}
-        records["carried"] = dict(carrier=carrier, runners=runners, port=run_port("carried"))
+        records["carried"] = dict(carrier=carrier, port=run_port("carried"))
         records["torch"] = own  # the records of the port's run on its own draws
         carrier.drained()
     return name, root, records, jax_learned, jax_data[-1], port, log.getvalue()
@@ -401,13 +395,6 @@ def _assert_carried_run_matches_jax(run):
     name, root, records, jax_learned, data, _, _ = run
     carried = records["carried"]
     carried["carrier"].assert_runs_match(rtol=1e-7)
-    jruns = [r for v in carried["runners"]["jax"].values() for r in v]
-    truns = [r for v in carried["runners"]["carried"].values() for r in v]
-    assert len(jruns) == len(truns) > 0
-    for (jp, jlr, jn), (tp, tlr, tn) in zip(jruns, truns):
-        assert (tlr, tn) == (jlr, jn)
-        np.testing.assert_allclose(to_np(tp), to_np(jp), rtol=1e-7,
-                                   atol=1e-7 * np.abs(to_np(jp)).max())
     results = os.path.join("results", "curve2")
     if os.path.isdir(root / "jax" / results):
         files = [f for f in _files(root / "jax" / results) if f.startswith("pls")]

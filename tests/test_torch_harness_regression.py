@@ -36,7 +36,7 @@ from experiments.uci.regression import main as jmain
 from experiments_torch.config import load_config
 from experiments_torch.metrics import concatenate_seed
 from experiments_torch.uci.regression import main as tmain
-from tests.torch_parity import Carrier, one_thread, to_np
+from tests.torch_parity import Carrier, drop_pls_checkpoints, one_thread, to_np
 
 CONFIG = "experiments/uci/regression/config_precond_map.yaml"
 CUTS = {"kernel": dict(number_of_iterations=2, number_of_epochs=30, subsample_size=100),
@@ -85,9 +85,7 @@ def runs(tmp_path_factory):
         mp.setattr(jmain, "plot_eigenvalues", lambda *a, **k: None)
         _recording(jmain, records["jax"], mp)
         _recording(tmain, records["torch"], mp)
-        carrier.record_jax(mp)
-        for package, module in (("jax", jmain), ("carried", tmain)):
-            _record_runs(module, records.setdefault(package, {}), mp)
+        carrier.record_jax(mp, [jmain])
         sections = {k: f"{k}_config" for k in ("kernel", "pls", "svgp", "metrics")}
         sections.update(data="data_config", inducing_points="inducing_points_config")
         try:
@@ -104,30 +102,14 @@ def runs(tmp_path_factory):
         concatenate_seed(str(root / "torch"), 0, ["kin8nm"], tmain.MODEL_NAMES, tmain.METRICS)
         # the port's main again on the JAX main's draws, from its own GP and
         # SVGP checkpoints: only the PLS models train
-        records["carried"].clear()
         shutil.copytree(root / "torch", root / "carried")
-        for name in os.listdir(root / "carried" / "0" / "models" / "kin8nm"):
-            if name.startswith("pls"):
-                os.remove(root / "carried" / "0" / "models" / "kin8nm" / name)
-        carrier.carry_port(mp)
+        drop_pls_checkpoints(root / "carried")
+        carrier.carry_port(mp, [tmain])
         tmain.main(data_seed=0, dataset_name="kin8nm", outputs_path=str(root / "carried"),
                    datasets_dir=str(datasets), device="cpu",
                    **{arg: tconfig[k] for k, arg in sections.items()})
         carrier.drained()
     return root, records, out.getvalue(), carrier
-
-
-def _record_runs(module, record, mp):
-    """Each ``train_pls_runner`` return (particles, step size, steps) of a
-    main, in order."""
-    fn = module.train_pls_runner
-
-    def wrapper(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        record.setdefault("train_pls_runner", []).append(out)
-        return out
-
-    mp.setattr(module, "train_pls_runner", wrapper)
 
 
 def _files(top):
@@ -246,11 +228,6 @@ def test_pls_values_match_jax_on_carried_draws(runs):
     assert len(carrier.jax["train"]) >= 4
     assert {r["tier"] for r in carrier.jax["train"]} == {"spectral", "off"}
     carrier.assert_runs_match(rtol=1e-7)
-    for (jp, jlr, jn), (tp, tlr, tn) in zip(records["jax"]["train_pls_runner"],
-                                            records["carried"]["train_pls_runner"], strict=True):
-        assert (tlr, tn) == (jlr, jn)
-        np.testing.assert_allclose(to_np(tp), to_np(jp), rtol=1e-7,
-                                   atol=1e-7 * np.abs(to_np(jp)).max())
     files = [f for f in _files(root / "jax" / results)
              if f.startswith(os.path.join("kin8nm", "pls"))]
     assert len(files) == 2 * (6 + 6 + 12)

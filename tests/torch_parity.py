@@ -6,7 +6,8 @@ fp64."""
 from __future__ import annotations
 
 import contextlib
-import sys
+import inspect
+import os
 
 import jax
 import jax.numpy as jnp
@@ -389,6 +390,8 @@ class Carrier:
     ``train_pls`` call runs on the JAX call's normals of every step through
     ``_train_pls_loop(noise=NoiseChunks(...))``, after checking that its
     steps, step size, seed, tier and discretisation are the JAX call's.
+    Both keep each ``train_pls_runner`` return (particles, step size,
+    steps) of the mains' modules they are given in ``runners``.
     :meth:`drained` checks that the port's main took every draw."""
 
     KINDS = ("train", "init", "predictive", "observation")
@@ -400,9 +403,10 @@ class Carrier:
         self.start_rtol = start_rtol
         self.jax = {k: [] for k in self.KINDS}
         self.port_train = []
+        self.runners = {"jax": [], "port": []}
         self._muted = False
 
-    def record_jax(self, mp):
+    def record_jax(self, mp, runner_modules):
         from experiments import trainers as jtrainers
         from projected_langevin_sampling_tpu import training as jtraining
         from projected_langevin_sampling_tpu.models import pls as jpls
@@ -434,26 +438,37 @@ class Carrier:
             return out, energies
 
         mp.setattr(jtrainers, "_train_pls", train)
-        original_predict = jpls.PLS.predict
-
-        def predict(obj, *args, **kwargs):
-            # the step search's train-split prediction, which only a metric
-            # other than the final energy reads: the port's search makes it
-            # only then (experiments_torch/runners.py:_search_metric)
-            caller = sys._getframe(1)
-            unread = (caller.f_code.co_name == "train_pls_runner"
-                      and caller.f_locals.get("metric_to_optimise") == "loss")
-            before, self._muted = self._muted, unread
-            try:
-                return original_predict(obj, *args, **kwargs)
-            finally:
-                self._muted = before
-
-        mp.setattr(jpls.PLS, "predict", predict)
+        for module in runner_modules:
+            self._record_runner(mp, module, "jax")
         self._record(mp, jpls.PLS, "initialise_particles", "init")
         self._record(mp, jonb.OrthonormalBasis, "sample_predictive_noise", "predictive")
         self._record(mp, jipb.InducingPointBasis, "sample_predictive_noise", "predictive")
         self._record(mp, jcost_base.PLSCostMixin, "sample_observation_noise", "observation")
+
+    def _record_runner(self, mp, module, package):
+        """Keep each ``module.train_pls_runner`` return in
+        ``runners[package]``. A JAX runner that searches on the final energy
+        ("loss") runs muted: its train-split predictions are read by
+        nothing, and the port's search does not make them
+        (experiments_torch/runners.py:_search_metric)."""
+        if not hasattr(module, "train_pls_runner"):
+            return
+        fn = module.train_pls_runner
+        signature = inspect.signature(fn)
+
+        def runner(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            unread = package == "jax" and bound.arguments["metric_to_optimise"] == "loss"
+            before, self._muted = self._muted, self._muted or unread
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self._muted = before
+            self.runners[package].append(out)
+            return out
+
+        mp.setattr(module, "train_pls_runner", runner)
 
     def _record(self, mp, cls, name, kind):
         original = getattr(cls, name)
@@ -466,7 +481,7 @@ class Carrier:
 
         mp.setattr(cls, name, wrapper)
 
-    def carry_port(self, mp):
+    def carry_port(self, mp, runner_modules):
         from experiments_torch import trainers as ttrainers
         from projected_langevin_sampling_torch import training as ttraining
         from projected_langevin_sampling_torch.models import pls as tpls
@@ -513,6 +528,8 @@ class Carrier:
 
         mp.setattr(ttrainers, "_train_pls", train)
         mp.setattr(ttraining, "_train_pls_loop", loop)
+        for module in runner_modules:
+            self._record_runner(mp, module, "port")
         if hasattr(self, "_port_init"):
             mp.setattr(self._port_init[0], "generate_init_particles", self._port_init[1])
         for module, name, port_build in getattr(self, "_port_bases", []):
@@ -577,8 +594,9 @@ class Carrier:
 
     def assert_runs_match(self, rtol=1e-7):
         """Every port train_pls call gave its JAX call's energies and
-        particles at ``rtol`` (particles with an atol of rtol times the
-        largest)."""
+        particles at ``rtol``, and every port ``train_pls_runner`` its JAX
+        runner's step size and steps run and its particles at ``rtol``
+        (particles with an atol of rtol times the largest)."""
         assert len(self.port_train) == len(self.jax["train"]) > 0
         for i, (jrun, trun) in enumerate(zip(self.jax["train"], self.port_train)):
             assert len(trun["energies"]) == len(jrun["energies"]), i
@@ -587,6 +605,13 @@ class Carrier:
             np.testing.assert_allclose(trun["particles"], jrun["particles"], rtol=rtol,
                                        atol=rtol * np.abs(jrun["particles"]).max(),
                                        err_msg=f"train_pls call {i}")
+        assert len(self.runners["port"]) == len(self.runners["jax"]) > 0
+        for i, ((jp, jlr, jn), (tp, tlr, tn)) in enumerate(
+                zip(self.runners["jax"], self.runners["port"])):
+            assert (tlr, tn) == (jlr, jn), f"train_pls_runner {i}"
+            np.testing.assert_allclose(to_np(tp), to_np(jp), rtol=rtol,
+                                       atol=rtol * np.abs(to_np(jp)).max(),
+                                       err_msg=f"train_pls_runner {i}")
 
     def carry_bases(self, mp, jmodule, tmodule):
         """The JAX main's bases in the port's main: each
@@ -621,3 +646,12 @@ class Carrier:
     def drained(self):
         left = {k: len(v) for k, v in self.queues.items() if v}
         assert not left, f"JAX draws the port's main never took: {left}"
+
+
+def drop_pls_checkpoints(top):
+    """Remove the PLS checkpoints under a main's outputs ``top``: a rerun
+    of the main reloads its GP and SVGP fits and trains only PLS."""
+    for d, _, files in os.walk(top):
+        for f in files:
+            if f.startswith("pls") and f.endswith(".pkl"):
+                os.remove(os.path.join(d, f))
