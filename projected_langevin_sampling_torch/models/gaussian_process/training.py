@@ -18,7 +18,10 @@ epoch's update (``trainers.py:36-44``), the SVGP stopper adopts it
 (``:117-130``), neither records the stopping loss, and non-finite SVGP
 parameters return ``(None, None)`` (``:131-134``). Adam and SGD are optax's
 updates written as tensor ops, so the optimiser state is part of the run's
-state and a discarded update drops it with ``torch.where``.
+state and a discarded update drops it with ``torch.where``. Under the
+profiler a fit is the span ``pls.fit_exact_gp`` or ``pls.fit_svgp``, and its
+read-back of the losses and rebuild of the model ``pls.fit.readback``
+(``utils/tracing.span``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from projected_langevin_sampling_torch.ops.linalg import (
 from projected_langevin_sampling_torch.utils.device import as_tensor
 from projected_langevin_sampling_torch.utils.early_stopper import run_training, take
 from projected_langevin_sampling_torch.utils.prng import GeneratorLike, as_generator
+from projected_langevin_sampling_torch.utils.tracing import span
 
 # optax.adam's defaults (b1, b2, eps; eps_root 0)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -107,51 +111,53 @@ def fit_exact_gp(
     epoch defers and the rest of the run takes :func:`ladder_cholesky`, the
     escalating jitter of ``nan_rescued_cholesky`` as data flow: the same
     numbers, at the ladder's price only where the plain factor fails."""
-    device = kernel.device
-    x = _as_2d(as_tensor(x, device=device))
-    y = as_tensor(y, device=device)
-    dtype = x.dtype
-    if fixed_noise_variances is not None:
-        fixed_noise_variances = as_tensor(fixed_noise_variances, device=device, dtype=dtype)
-    as_param = lambda v: torch.as_tensor(v, dtype=dtype, device=device)  # noqa: E731
-    params = (
-        as_param(mean_constant),
-        torch.log(as_param(kernel.lengthscales)),
-        torch.log(as_param(kernel.outputscale)),
-        torch.log(as_param(noise)),
-    )
-    params = tuple(p.detach().clone().requires_grad_() for p in params)
-    n = y.shape[0]
+    with span("pls.fit_exact_gp"):
+        device = kernel.device
+        x = _as_2d(as_tensor(x, device=device))
+        y = as_tensor(y, device=device)
+        dtype = x.dtype
+        if fixed_noise_variances is not None:
+            fixed_noise_variances = as_tensor(fixed_noise_variances, device=device, dtype=dtype)
+        as_param = lambda v: torch.as_tensor(v, dtype=dtype, device=device)  # noqa: E731
+        params = (
+            as_param(mean_constant),
+            torch.log(as_param(kernel.lengthscales)),
+            torch.log(as_param(kernel.outputscale)),
+            torch.log(as_param(noise)),
+        )
+        params = tuple(p.detach().clone().requires_grad_() for p in params)
+        n = y.shape[0]
 
-    def epoch(rescue: bool):
-        def step(t, state):
-            p, mu, nu, count = state[:4], state[4:8], state[8:12], state[12]
-            failed = []
+        def epoch(rescue: bool):
+            def step(t, state):
+                p, mu, nu, count = state[:4], state[4:8], state[8:12], state[12]
+                failed = []
 
-            def plain(matrix):
-                chol = _cholesky_or_nan(matrix)
-                failed.append(~_all_finite(chol).all())
-                return chol
+                def plain(matrix):
+                    chol = _cholesky_or_nan(matrix)
+                    failed.append(~_all_finite(chol).all())
+                    return chol
 
-            gp = _exact_gp_from_params(dict(zip(_EXACT_PARAMS, p)), x, y, fixed_noise_variances)
-            loss = -gp.log_marginal_likelihood(ladder_cholesky if rescue else plain) / n
-            grads = torch.autograd.grad(loss, p)
-            new_p, mu, nu, count = _adam(p, grads, mu, nu, count, learning_rate)
-            new_state = (*new_p, *mu, *nu, count)
-            return (new_state, loss) if rescue else (new_state, loss, failed[0])
+                gp = _exact_gp_from_params(dict(zip(_EXACT_PARAMS, p)), x, y, fixed_noise_variances)
+                loss = -gp.log_marginal_likelihood(ladder_cholesky if rescue else plain) / n
+                grads = torch.autograd.grad(loss, p)
+                new_p, mu, nu, count = _adam(p, grads, mu, nu, count, learning_rate)
+                new_state = (*new_p, *mu, *nu, count)
+                return (new_state, loss) if rescue else (new_state, loss, failed[0])
 
-        return step
+            return step
 
-    zeros = tuple(torch.zeros_like(p) for p in params)
-    run = run_training(
-        epoch(rescue=False),
-        (*params, *zeros, *zeros, torch.zeros((), dtype=dtype, device=device)),
-        int(number_of_epochs), learning_rate, early_stopper_patience, dtype, device,
-        discard=True, fallback=epoch(rescue=True), what="fit_exact_gp",
-    )
-    fitted = {name: v.detach() for name, v in zip(_EXACT_PARAMS, run.state[:4])}
-    return (_exact_gp_from_params(fitted, x, y, fixed_noise_variances),
-            _recorded_losses(run))
+        zeros = tuple(torch.zeros_like(p) for p in params)
+        run = run_training(
+            epoch(rescue=False),
+            (*params, *zeros, *zeros, torch.zeros((), dtype=dtype, device=device)),
+            int(number_of_epochs), learning_rate, early_stopper_patience, dtype, device,
+            discard=True, fallback=epoch(rescue=True), what="fit_exact_gp",
+        )
+        with span("pls.fit.readback"):
+            fitted = {name: v.detach() for name, v in zip(_EXACT_PARAMS, run.state[:4])}
+            return (_exact_gp_from_params(fitted, x, y, fixed_noise_variances),
+                    _recorded_losses(run))
 
 
 # --------------------------------------------------------------------------
@@ -231,64 +237,66 @@ def fit_svgp(
     On the card the epoch's permutation is drawn inside the graph from
     ``generator``, registered with it, so a graphed fit draws the very
     permutations of the eager one."""
-    device = svgp.x_induce.device
-    x = _as_2d(as_tensor(x, device=device))
-    y = as_tensor(y, device=device)
-    n = x.shape[0]
-    batch_size = min(int(batch_size), n)
-    num_batches = max(n // batch_size, 1)
-    rem = n - num_batches * batch_size
-    if orders is None:
-        generator = as_generator(generator, device=device)
-    else:
-        orders = torch.as_tensor(np.asarray(orders), dtype=torch.int64, device=device)
-
-    frozen = set()
-    if not learn_kernel_parameters:
-        frozen |= {"log_lengthscales", "log_outputscale"}
-    if not learn_observation_noise:
-        frozen |= {"log_noise"}
-    params = _svgp_params(svgp, learn_inducing_locations)
-    names = tuple(params)
-    trainable = tuple(name for name in names if name not in frozen)
-
-    def sgd(p: dict, index: torch.Tensor) -> dict:
-        """One optax.sgd step on a batch: p - lr g."""
-        p = {k: v.detach().requires_grad_(k in trainable) for k, v in p.items()}
-        loss = -_svgp_from_params(p, svgp).elbo(x[index], y[index], n) / n
-        grads = torch.autograd.grad(loss, [p[k] for k in trainable], allow_unused=True)
-        for k, g in zip(trainable, grads):
-            if g is not None:
-                p[k] = p[k].detach() - learning_rate * g
-        return p
-
-    def step(t, state):
-        p = dict(zip(names, state))
+    with span("pls.fit_svgp"):
+        device = svgp.x_induce.device
+        x = _as_2d(as_tensor(x, device=device))
+        y = as_tensor(y, device=device)
+        n = x.shape[0]
+        batch_size = min(int(batch_size), n)
+        num_batches = max(n // batch_size, 1)
+        rem = n - num_batches * batch_size
         if orders is None:
-            order = torch.randperm(n, generator=generator, device=device)
+            generator = as_generator(generator, device=device)
         else:
-            order = take(orders, t)
-        for b in range(num_batches):
-            p = sgd(p, order[b * batch_size : (b + 1) * batch_size])
-        if rem:
-            p = sgd(p, order[num_batches * batch_size :])
-        with torch.no_grad():
-            p = _detached(p)
-            loss = -_svgp_from_params(p, svgp).elbo(x, y, n) / n
-        return tuple(p[k] for k in names), loss
+            orders = torch.as_tensor(np.asarray(orders), dtype=torch.int64, device=device)
 
-    def non_finite(state):
-        return ~torch.stack([torch.isfinite(v).all() for v in state]).all()
+        frozen = set()
+        if not learn_kernel_parameters:
+            frozen |= {"log_lengthscales", "log_outputscale"}
+        if not learn_observation_noise:
+            frozen |= {"log_noise"}
+        params = _svgp_params(svgp, learn_inducing_locations)
+        names = tuple(params)
+        trainable = tuple(name for name in names if name not in frozen)
 
-    # the epoch's updates are adopted, then non-finite parameters abort,
-    # then the stopper may stop without recording the loss
-    run = run_training(
-        step, tuple(params[k] for k in names), int(number_of_epochs), learning_rate,
-        early_stopper_patience, x.dtype, device, abort=non_finite,
-        generators=(generator,) if orders is None and device.type == "cuda" else (),
-        what="fit_svgp",
-    )
-    if run.aborted:
-        return None, None
-    fitted = {k: v.detach() for k, v in zip(names, run.state)}
-    return _svgp_from_params(fitted, svgp), _recorded_losses(run)
+        def sgd(p: dict, index: torch.Tensor) -> dict:
+            """One optax.sgd step on a batch: p - lr g."""
+            p = {k: v.detach().requires_grad_(k in trainable) for k, v in p.items()}
+            loss = -_svgp_from_params(p, svgp).elbo(x[index], y[index], n) / n
+            grads = torch.autograd.grad(loss, [p[k] for k in trainable], allow_unused=True)
+            for k, g in zip(trainable, grads):
+                if g is not None:
+                    p[k] = p[k].detach() - learning_rate * g
+            return p
+
+        def step(t, state):
+            p = dict(zip(names, state))
+            if orders is None:
+                order = torch.randperm(n, generator=generator, device=device)
+            else:
+                order = take(orders, t)
+            for b in range(num_batches):
+                p = sgd(p, order[b * batch_size : (b + 1) * batch_size])
+            if rem:
+                p = sgd(p, order[num_batches * batch_size :])
+            with torch.no_grad():
+                p = _detached(p)
+                loss = -_svgp_from_params(p, svgp).elbo(x, y, n) / n
+            return tuple(p[k] for k in names), loss
+
+        def non_finite(state):
+            return ~torch.stack([torch.isfinite(v).all() for v in state]).all()
+
+        # the epoch's updates are adopted, then non-finite parameters abort,
+        # then the stopper may stop without recording the loss
+        run = run_training(
+            step, tuple(params[k] for k in names), int(number_of_epochs), learning_rate,
+            early_stopper_patience, x.dtype, device, abort=non_finite,
+            generators=(generator,) if orders is None and device.type == "cuda" else (),
+            what="fit_svgp",
+        )
+        if run.aborted:
+            return None, None
+        with span("pls.fit.readback"):
+            fitted = {k: v.detach() for k, v in zip(names, run.state)}
+            return _svgp_from_params(fitted, svgp), _recorded_losses(run)

@@ -87,6 +87,7 @@ from projected_langevin_sampling_torch.utils.early_stopper import (
     take,
 )
 from projected_langevin_sampling_torch.utils.prng import GeneratorLike, as_generator
+from projected_langevin_sampling_torch.utils.tracing import span
 
 def _require_known_basis(basis) -> None:
     if not isinstance(basis, (OrthonormalBasis, InducingPointBasis)):
@@ -655,44 +656,48 @@ def train_pls(
     view and leaves through U = S W (:func:`needs_w_space_reroute`). The
     spectral tier's factorisation runs in host fp64; on the card the
     ``off`` and ``quadratic`` tiers run as chunks of CUDA-graph replays of
-    one step (``utils/early_stopper.run_training``)."""
-    if generator is None and seed is not None:
-        generator = seed
-    if discretisation not in DISCRETISATIONS:
-        raise ValueError(f"Unknown discretisation {discretisation!r}")
-    basis, cost = pls.basis, pls.cost
-    _require_known_basis(basis)
-    exit_map = None
-    if needs_w_space_reroute(basis, fast_path, discretisation):
-        basis, s_mat, s_inv = ipb_w_space_view(basis)
-        particles = s_inv @ particles
-        exit_map = lambda u: s_mat @ u  # noqa: E731
-    tier = resolve_tier(basis, cost, fast_path, discretisation)
-    if fast_path == "auto" and generator is not None and tier == "spectral":
-        warnings.warn(
-            'fast_path="auto" resolved to the spectral tier: identical '
-            "posterior law, but a given seed yields a different sample path "
-            'than fast_path="quadratic"/"off".',
-            UserWarning,
-            stacklevel=2,
+    one step (``utils/early_stopper.run_training``). Under the profiler the
+    call is the span ``pls.train_pls``, its read-back of the energies
+    ``pls.train_pls.readback`` (``utils/tracing.span``)."""
+    with span("pls.train_pls"):
+        if generator is None and seed is not None:
+            generator = seed
+        if discretisation not in DISCRETISATIONS:
+            raise ValueError(f"Unknown discretisation {discretisation!r}")
+        basis, cost = pls.basis, pls.cost
+        _require_known_basis(basis)
+        exit_map = None
+        if needs_w_space_reroute(basis, fast_path, discretisation):
+            basis, s_mat, s_inv = ipb_w_space_view(basis)
+            particles = s_inv @ particles
+            exit_map = lambda u: s_mat @ u  # noqa: E731
+        tier = resolve_tier(basis, cost, fast_path, discretisation)
+        if fast_path == "auto" and generator is not None and tier == "spectral":
+            warnings.warn(
+                'fast_path="auto" resolved to the spectral tier: identical '
+                "posterior law, but a given seed yields a different sample path "
+                'than fast_path="quadratic"/"off".',
+                UserWarning,
+                stacklevel=2,
+            )
+        result = _train_pls_loop(
+            basis,
+            cost,
+            particles,
+            step_size,
+            early_stopper_patience,
+            int(number_of_epochs),
+            tier,
+            spectral_system_host(basis, cost, discretisation) if tier == "spectral" else None,
+            generator=generator,
+            discretisation=discretisation,
         )
-    result = _train_pls_loop(
-        basis,
-        cost,
-        particles,
-        step_size,
-        early_stopper_patience,
-        int(number_of_epochs),
-        tier,
-        spectral_system_host(basis, cost, discretisation) if tier == "spectral" else None,
-        generator=generator,
-        discretisation=discretisation,
-    )
-    energies = [
-        float(e) for e, r in zip(result.energies.tolist(), result.recorded.tolist()) if r
-    ]
-    out = result.particles if exit_map is None else exit_map(result.particles)
-    return out, energies
+        with span("pls.train_pls.readback"):
+            energies = [
+                float(e) for e, r in zip(result.energies.tolist(), result.recorded.tolist()) if r
+            ]
+        out = result.particles if exit_map is None else exit_map(result.particles)
+        return out, energies
 
 
 def langevin_steps(

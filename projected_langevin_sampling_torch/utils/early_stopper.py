@@ -31,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from projected_langevin_sampling_torch.utils.tracing import span
+
 
 class EarlyStopper:
     def __init__(self, patience: float = 1e-4):
@@ -166,7 +168,7 @@ class _Program:
     def __init__(self, body, device, generators, what: str):
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+        with span("pls.run_training.warmup"), torch.cuda.stream(side):
             body()  # the warm-up is a step of the run
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
@@ -174,7 +176,7 @@ class _Program:
             self.graph.register_generator_state(generator)
         before = [getattr(o, a) for o, a in REPLAYED_COUNTERS]
         try:
-            with torch.cuda.graph(self.graph, stream=side):
+            with span("pls.run_training.capture"), torch.cuda.graph(self.graph, stream=side):
                 body()
         except Exception as exc:
             raise RuntimeError(
@@ -222,87 +224,97 @@ def run_training(step, state, num_steps: int, step_size: float, patience: float,
     chunk's steps are replays of one captured step, after a warm-up step on
     a side stream; ``generators`` are the CUDA generators the step draws
     from, registered with the graph so its draws are the eager loop's. The
-    host reads the flags once every :data:`CHECK_EVERY` steps."""
+    host reads the flags once every :data:`CHECK_EVERY` steps.
+
+    Under the profiler the run is the span ``pls.run_training``, holding one
+    ``.warmup`` and one ``.capture`` a graph captured, one ``.chunk`` (the
+    chunk's replays or eager steps) and one ``.sync`` (its flag read) a
+    chunk, and one ``.close`` a graph closed (``utils/tracing.span``)."""
     global last_run_stats
     device = torch.device(device)
     if graph is None:
         graph = device.type == "cuda" and not _EAGER_ON_CARD
     if graph and device.type != "cuda":
         raise ValueError("a graphed run needs CUDA tensors")
-    state = tuple(s.detach().clone().requires_grad_(s.requires_grad) for s in state)
-    full = lambda v, dt=dtype: torch.full((), v, dtype=dt, device=device)  # noqa: E731
-    min_loss, sim_time, nan = full(math.inf), full(0.0), full(math.nan)
-    stopped, bad, pending = (full(False, torch.bool) for _ in range(3))
-    t, steps = full(0, torch.int64), full(0, torch.int32)
-    energies = torch.full((num_steps,), math.nan, dtype=dtype, device=device)
-    recorded = torch.zeros(num_steps, dtype=torch.bool, device=device)
+    with span("pls.run_training"):
+        state = tuple(s.detach().clone().requires_grad_(s.requires_grad) for s in state)
+        full = lambda v, dt=dtype: torch.full((), v, dtype=dt, device=device)  # noqa: E731
+        min_loss, sim_time, nan = full(math.inf), full(0.0), full(math.nan)
+        stopped, bad, pending = (full(False, torch.bool) for _ in range(3))
+        t, steps = full(0, torch.int64), full(0, torch.int32)
+        energies = torch.full((num_steps,), math.nan, dtype=dtype, device=device)
+        recorded = torch.zeros(num_steps, dtype=torch.bool, device=device)
 
-    def body(step_fn):
-        out = step_fn(t, state)
-        new_state, energy = out[0], out[1]
-        with torch.no_grad():
-            energy = energy.detach()
-            live = ~(stopped | pending)
-            if len(out) > 2:
-                defer = live & out[2]
-                live = live & ~out[2]
-                pending.logical_or_(defer)
-            finite = torch.isfinite(energy)
-            improved = energy < min_loss
-            sim_time_new = torch.where(improved, 0.0, sim_time + step_size)
-            stop_now = ~finite | (~improved & (sim_time_new >= patience))
-            if abort is not None:
-                bad_now = live & abort(new_state)
-                bad.logical_or_(bad_now)
-                stop_now = stop_now | bad_now
-            adopt = live & ~stop_now if discard else live
-            for old, new in zip(state, new_state):
-                old.copy_(torch.where(adopt, new.detach(), old))
-            min_loss.copy_(torch.where(live & improved, energy, min_loss))
-            sim_time.copy_(torch.where(live, sim_time_new, sim_time))
-            energies.index_copy_(0, t.reshape(1), torch.where(live, energy, nan).reshape(1))
-            recorded.index_copy_(0, t.reshape(1), (live & ~stop_now).reshape(1))
-            steps.add_(live.to(torch.int32))
-            stopped.logical_or_(live & stop_now)
-            t.add_((~pending).to(torch.int64))
+        def body(step_fn):
+            out = step_fn(t, state)
+            new_state, energy = out[0], out[1]
+            with torch.no_grad():
+                energy = energy.detach()
+                live = ~(stopped | pending)
+                if len(out) > 2:
+                    defer = live & out[2]
+                    live = live & ~out[2]
+                    pending.logical_or_(defer)
+                finite = torch.isfinite(energy)
+                improved = energy < min_loss
+                sim_time_new = torch.where(improved, 0.0, sim_time + step_size)
+                stop_now = ~finite | (~improved & (sim_time_new >= patience))
+                if abort is not None:
+                    bad_now = live & abort(new_state)
+                    bad.logical_or_(bad_now)
+                    stop_now = stop_now | bad_now
+                adopt = live & ~stop_now if discard else live
+                for old, new in zip(state, new_state):
+                    old.copy_(torch.where(adopt, new.detach(), old))
+                min_loss.copy_(torch.where(live & improved, energy, min_loss))
+                sim_time.copy_(torch.where(live, sim_time_new, sim_time))
+                energies.index_copy_(0, t.reshape(1), torch.where(live, energy, nan).reshape(1))
+                recorded.index_copy_(0, t.reshape(1), (live & ~stop_now).reshape(1))
+                steps.add_(live.to(torch.int32))
+                stopped.logical_or_(live & stop_now)
+                t.add_((~pending).to(torch.int64))
 
-    step_fn, program = step, None
-    launched = syncs = captures = 0
-    done = 0  # steps taken, as the device counts them
-    with _cusolver(device):
-        try:
-            while done < num_steps:
-                n = min(CHECK_EVERY, num_steps - done)
-                k = 0
-                if graph and program is None:
-                    program = _Program(lambda: body(step_fn), device, generators, what)
-                    captures += 1
-                    k = 1  # the warm-up step
-                for _ in range(k, n):
-                    if program is None:
-                        body(step_fn)
-                    else:
-                        program.replay()
-                launched += n
-                flags = torch.stack([stopped.to(torch.int64), pending.to(torch.int64), t])
-                is_stopped, is_pending, done = flags.tolist()
-                syncs += 1
-                if is_stopped:
-                    break
-                if is_pending:
-                    if fallback is None:
-                        raise RuntimeError(f"{what}: a step deferred with no fallback")
-                    step_fn, fallback = fallback, None
-                    pending.fill_(False)
-                    if program is not None:
+        step_fn, program = step, None
+        launched = syncs = captures = 0
+        done = 0  # steps taken, as the device counts them
+        with _cusolver(device):
+            try:
+                while done < num_steps:
+                    n = min(CHECK_EVERY, num_steps - done)
+                    k = 0
+                    if graph and program is None:
+                        program = _Program(lambda: body(step_fn), device, generators, what)
+                        captures += 1
+                        k = 1  # the warm-up step
+                    with span("pls.run_training.chunk"):
+                        for _ in range(k, n):
+                            if program is None:
+                                body(step_fn)
+                            else:
+                                program.replay()
+                    launched += n
+                    with span("pls.run_training.sync"):
+                        flags = torch.stack([stopped.to(torch.int64), pending.to(torch.int64), t])
+                        is_stopped, is_pending, done = flags.tolist()
+                    syncs += 1
+                    if is_stopped:
+                        break
+                    if is_pending:
+                        if fallback is None:
+                            raise RuntimeError(f"{what}: a step deferred with no fallback")
+                        step_fn, fallback = fallback, None
+                        pending.fill_(False)
+                        if program is not None:
+                            with span("pls.run_training.close"):
+                                program.close()
+                            program = None
+            finally:
+                if program is not None:
+                    with span("pls.run_training.close"):
+                        torch.cuda.synchronize(device)
                         program.close()
-                        program = None
-        finally:
-            if program is not None:
-                torch.cuda.synchronize(device)
-                program.close()
-    last_run_stats = RunStats("graph" if graph else "eager", launched, syncs, captures)
-    return TrainingRun(state, energies, recorded, steps, bool(bad))
+        last_run_stats = RunStats("graph" if graph else "eager", launched, syncs, captures)
+        return TrainingRun(state, energies, recorded, steps, bool(bad))
 
 
 def replay_early_stopper(

@@ -9,6 +9,7 @@ chunks; ``utils/early_stopper.run_training``) is held to its eager form
 the loss or energy trajectory, the parameters or particles, and the stop.
 Each form is timed alone (host clock after a device sync). Its host launch
 calls (kernels, graphs, copies and fills) are counted by ``torch.profiler``
+inside the runner's own span (``pls.run_training``, ``utils/tracing.span``)
 on a run of ``PROFILED_STEPS`` steps, all forms in one profiling session,
 and carried to the whole run: an eager run's in proportion to its steps, a
 graphed run's by one graph launch for each further step (the few calls of
@@ -199,22 +200,25 @@ def _timed(fn, device):
 
 def _launch_counts(jobs: dict) -> dict:
     """Host launch calls of each ``jobs[label]()``, from the runtime events
-    the profiler records inside its ``record_function`` range; one session
-    for all (None where the profiler saw no launch at all)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    the profiler records inside the program's ``pls.run_training`` span (one
+    a job, in the jobs' order); one session for all (None where the profiler
+    saw no launch at all)."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for label, fn in jobs.items():
-            with record_function(f"graph_runs/{label}"):
-                fn()
-                torch.cuda.synchronize()
+        for fn in jobs.values():
+            fn()
+            torch.cuda.synchronize()
     events = prof.events()
-    ranges = {e.name[len("graph_runs/"):]: e.time_range for e in events
-              if e.name.startswith("graph_runs/")}
+    # the host's ranges (the profiler mirrors each onto the device too)
+    runs = sorted((e.time_range for e in events if e.name == "pls.run_training"
+                   and e.device_type == torch.autograd.DeviceType.CPU), key=lambda r: r.start)
+    if len(runs) != len(jobs):
+        raise RuntimeError(f"{len(runs)} pls.run_training spans for {len(jobs)} runs")
     starts = [e.time_range.start for e in events if e.name in LAUNCH_NAMES]
     if not starts:
         return {label: None for label in jobs}
-    return {label: sum(r.start <= t <= r.end for t in starts) for label, r in ranges.items()}
+    return {label: sum(r.start <= t <= r.end for t in starts) for label, r in zip(jobs, runs)}
 
 
 def hold(name, run, values, steps, device, log=print) -> dict:

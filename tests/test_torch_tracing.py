@@ -1,0 +1,163 @@
+"""The program's spans (``utils/tracing.span``) in ``train_pls`` (the ``off``
+tier), ``fit_svgp`` and ``fit_exact_gp``.
+
+With no profiler running nothing is constructed. Under
+``torch.profiler.profile`` a call opens its outer span and one
+``pls.run_training``, one ``.chunk`` and one ``.sync`` a chunk (as many as
+``RunStats.host_syncs``), and a read-back span; every span lies inside its
+parent, and the answers are bit for bit those of a run with the profiler
+off. On the card a graphed run also opens one ``.warmup`` and one
+``.capture`` a graph it captures (``RunStats.captures``), and no span
+appears on the device's timeline.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import projected_langevin_sampling_torch as pt
+from projected_langevin_sampling_torch.utils import early_stopper
+
+CHUNK, STEPS = 3, 10  # four chunks, the last one short
+
+
+def _kernel(d, device="cpu"):
+    return pt.ARDKernel(torch.full((d,), 0.8, dtype=torch.float64, device=device),
+                        torch.tensor(1.2, dtype=torch.float64, device=device))
+
+
+def _gp_data(n=24, d=2, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2.0, 2.0, (n, d))
+    y = np.sin(x.sum(1)) + 0.1 * rng.normal(size=n)
+    return torch.as_tensor(x, device=device), torch.as_tensor(y, device=device)
+
+
+def _train_pls():
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(np.sort(rng.uniform(-2.0, 2.0, (40, 1)), 0))
+    y = torch.sin(2.0 * x[:, 0]) + 0.1 * torch.as_tensor(rng.normal(size=40))
+    z = x[::5][:8]
+    kernel = pt.PLSKernel(base_kernel=pt.ARDKernel(torch.tensor([0.6], dtype=torch.float64),
+                                                   torch.tensor(1.0, dtype=torch.float64)),
+                          approximation_samples=z)
+    basis = pt.build_orthonormal_basis(kernel, z, x, verbose=False)
+    pls = pt.PLS(basis, pt.StudentTCost(y_train=y, degrees_of_freedom=4.0, scale=0.3))
+    u0 = pls.initialise_particles(6, generator=0)
+    particles, energies = pt.train_pls(pls, u0, STEPS, 1e-3, generator=3, fast_path="off")
+    return [particles, torch.tensor(energies)]
+
+
+def _fit_svgp():
+    x, y = _gp_data()
+    z = torch.as_tensor(np.random.default_rng(1).uniform(-2.0, 2.0, (6, 2)))
+    svgp = pt.init_svgp(0.1, _kernel(2), pt.GaussianLikelihood(
+        noise=torch.tensor(0.2, dtype=torch.float64)), z)
+    fit, losses = pt.fit_svgp(svgp, x, y, STEPS, 8, 0.05, generator=5)
+    return [fit.mean_constant, fit.variational_mean, fit.variational_chol, fit.likelihood.noise,
+            torch.tensor(losses)]
+
+
+def _fit_exact_gp(device="cpu"):
+    x, y = _gp_data(device=device)
+    gp, losses = pt.fit_exact_gp(x, y, _kernel(2, device), noise=0.1, learning_rate=0.05,
+                                 number_of_epochs=STEPS)
+    return [gp.mean_constant, gp.kernel.lengthscales, gp.kernel.outputscale, gp.noise,
+            torch.tensor(losses)]
+
+
+# call, its outer span, its read-back span
+CALLS = {
+    "train_pls": (_train_pls, "pls.train_pls", "pls.train_pls.readback"),
+    "fit_svgp": (_fit_svgp, "pls.fit_svgp", "pls.fit.readback"),
+    "fit_exact_gp": (_fit_exact_gp, "pls.fit_exact_gp", "pls.fit.readback"),
+}
+
+
+@pytest.fixture(params=list(CALLS))
+def call(request, monkeypatch):
+    monkeypatch.setattr(early_stopper, "CHECK_EVERY", CHUNK)
+    return CALLS[request.param]
+
+
+def _spans(prof) -> list[tuple[str, int, int]]:
+    """(name, start, end) of the ``pls.`` spans on the host, by start."""
+    spans = [(e.name(), int(e.start_ns()), int(e.start_ns()) + int(e.duration_ns()))
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("pls.") and "cpu" in str(e.device_type()).lower()]
+    return sorted(spans, key=lambda s: s[1])
+
+
+def _bits(values):
+    return [v.detach().contiguous().view(torch.int64) for v in values]
+
+
+def test_no_record_function_with_the_profiler_off(call, monkeypatch):
+    def refuse(name, *args, **kwargs):
+        raise AssertionError(f"a record function ({name}) with the profiler off")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    call[0]()
+
+
+def test_spans_per_call_and_chunk(call):
+    fn, outer, readback = call
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    stats = early_stopper.last_run_stats
+    names = [s[0] for s in _spans(prof)]
+    chunks = math.ceil(STEPS / CHUNK)
+    assert stats.host_syncs == chunks and stats.captures == 0
+    assert names.count(outer) == names.count("pls.run_training") == names.count(readback) == 1
+    assert names.count("pls.run_training.chunk") == chunks
+    assert names.count("pls.run_training.sync") == stats.host_syncs
+    assert set(names) == {outer, readback, "pls.run_training", "pls.run_training.chunk",
+                          "pls.run_training.sync"}
+
+
+def test_every_span_lies_inside_its_parent(call):
+    fn, outer, readback = call
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    spans = _spans(prof)
+    where = {name: (a, b) for name, a, b in spans if name in (outer, "pls.run_training")}
+    for name, a, b in spans:
+        if name == outer:
+            continue
+        parent = "pls.run_training" if name.startswith("pls.run_training.") else outer
+        assert where[parent][0] <= a <= b <= where[parent][1], name
+    # the run's chunks and flag reads alternate, a chunk before its read
+    inner = [name for name, _, _ in spans if name.startswith("pls.run_training.")]
+    assert inner == ["pls.run_training.chunk", "pls.run_training.sync"] * math.ceil(STEPS / CHUNK)
+
+
+def test_answers_do_not_depend_on_the_profiler(call):
+    fn = call[0]
+    off = fn()
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = fn()
+    assert all(torch.equal(a, b) for a, b in zip(_bits(off), _bits(on)))
+
+
+@pytest.mark.card
+def test_a_graphed_run_opens_a_warmup_and_a_capture_a_graph(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest tests/test_torch_tracing.py "
+                    "-m card --noconftest)")
+    monkeypatch.setattr(early_stopper, "CHECK_EVERY", CHUNK)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _fit_exact_gp(device="cuda")
+    stats = early_stopper.last_run_stats
+    names = [s[0] for s in _spans(prof)]
+    assert stats.mode == "graph" and stats.captures >= 1
+    assert names.count("pls.run_training.warmup") == stats.captures
+    assert names.count("pls.run_training.capture") == stats.captures
+    assert names.count("pls.run_training.close") == stats.captures
+    assert names.count("pls.run_training.sync") == stats.host_syncs == math.ceil(STEPS / CHUNK)
+    # no span is mirrored onto the device's timeline, where it would read as work
+    assert not [e.name() for e in prof.profiler.kineto_results.events()
+                if e.name().startswith("pls.") and "cuda" in str(e.device_type()).lower()]
