@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port on one NVIDIA H100.
 
-Builds the five hand-written CUDA kernels from ``projected_langevin_sampling_torch/csrc``
+Builds the six hand-written CUDA kernels from ``projected_langevin_sampling_torch/csrc``
 with nvcc, holds each against its plain PyTorch version at the main paths'
 shapes, and drives the main paths through the entry points a user calls,
 each run with the launch counters set to 0 just before it and read just after:
@@ -85,7 +85,11 @@ time at the SM clock read beside the run; phases 6 and 9 split B3's and
 B5's device time by kernel, phases 6, 8 and 9 give the bound on the tensor
 cores beside the fp32 SIMT bound of earlier runs, phase 8 B4's launches per
 run (one), its host enqueue and the device's idle share inside its call, and
-phase 9 B5's host time per call.
+phase 9 B5's host time per call. Phase 9b holds Q1, the smoothed-Bernoulli
+quadrature of the ``off`` tier (port only), to its plain version at the rice
+main's shape in fp64 and fp32, reruns it bitwise, splits its device time by
+kernel, and counts its node loop's SASS for its bound; its launches are
+those of phases 13-17, where the smoothed cost trains on the ``off`` tier.
 
 A probe of CUDA's initialisation in a subprocess runs first (it raises on a
 wedged GPU driver). Any failure raises; there is no CPU fallback.
@@ -205,6 +209,18 @@ def profiled_launch_ms(fn, kernel_name, reps):
     return (total_us / 1e3 / launches if launches else None), launches
 
 
+def profiled_kernel_count(fn):
+    """The device kernels one call of ``fn`` runs, from the profiler's CUDA
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "cuda" in str(getattr(e, "device_type", "")).lower())
+
+
 def sum_measured(split):
     """The sum of a profiled split, None if no part was measured."""
     parts = [v for v in split.values() if v is not None]
@@ -272,13 +288,9 @@ def sass_functions(text):
     return funcs
 
 
-def step_loop_mix(entries):
-    """The op mix of a kernel's step loop: the innermost loop (a backward
-    branch with no other inside it) holding a warp shuffle, the largest if
-    several (the compiler may split a loop on a flag). Steps per iteration:
-    one a barrier where the loop holds barriers, else one a five-shuffle warp
-    sum (five SHFL each). Returns ``{class: count per step, "other": ...,
-    "total": ...}`` or None."""
+def innermost_loops(entries):
+    """``[(first, last), ...]`` indices of a function's innermost loops: a
+    backward branch with no other inside it."""
     index = {addr: i for i, (addr, _, _) in enumerate(entries)}
     loops = []
     for i, (_, op, args) in enumerate(entries):
@@ -286,10 +298,18 @@ def step_loop_mix(entries):
         start = index.get(int(target.group(1), 16), i) if target else i
         if start < i:  # a branch back: the loop from its target to here
             loops.append((start, i))
-    innermost = [(a, b) for a, b in loops
-                 if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    return [(a, b) for a, b in loops
+            if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+
+
+def step_loop_mix(entries):
+    """The op mix of a kernel's step loop: the innermost loop holding a warp
+    shuffle, the largest if several (the compiler may split a loop on a
+    flag). Steps per iteration: one a barrier where the loop holds barriers,
+    else one a five-shuffle warp sum (five SHFL each). Returns ``{class:
+    count per step, "other": ..., "total": ...}`` or None."""
     best = None
-    for a, b in innermost:
+    for a, b in innermost_loops(entries):
         ops = [e[1].split(".")[0] for e in entries[a:b + 1]]
         if "SHFL" in ops and (best is None or len(ops) > len(best)):
             best = ops
@@ -1338,6 +1358,117 @@ def phase_fused(pt, fused):
 
 
 # --------------------------------------------------------------------------
+# phase 9b: Q1, the smoothed-Bernoulli quadrature of the off tier (port only)
+# --------------------------------------------------------------------------
+# the rice main's training rows at J = 1000 with the GH16 rule, as
+# rice_classification_j1000.train runs it
+N9B, J9B, Q9B = 3048, 1000, 16
+# dc within 1e-13 and cost within 1e-12 of the plain version, relative to
+# their largest magnitudes, in fp64; 1e-5 in fp32
+TOL9B = {torch.float64: (1e-13, 1e-12), torch.float32: (1e-5, 1e-5)}
+# the H100 SXM's boost clock, and the fp64 pipe's rate: 64 lanes a clock an
+# SM, so a warp's fp64 instruction holds a scheduler's pipe two clocks
+SM_CLOCK_HZ, FP64_CLOCKS_A_WARP_OP = 1.98e9, 2
+FP64_OPCODES = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
+Q1_KERNELS = ("quadrature_kernel", "column_sum_kernel")
+Q1_UNROLL = 4  # the node loop's #pragma unroll (csrc/smoothed_bernoulli.cu)
+
+
+def q1_node_mix(lib_path):
+    """SASS instructions a node of the fp64 quadrature kernel, from its
+    largest innermost loop (the node loop, unrolled Q1_UNROLL times): all of
+    them, the fp64 pipe's, MUFU and calls; and every innermost loop's
+    length. (None, []) without cuobjdump or where no loop is found."""
+    text = sass_text(lib_path)
+    if text is None:
+        return None, []
+    entries = next((e for name, e in sass_functions(text).items()
+                    if "quadrature_kernel" in name and "IdE" in name), None)
+    loops = innermost_loops(entries or [])
+    if not loops:
+        return None, []
+    a, b = max(loops, key=lambda ab: ab[1] - ab[0])
+    ops = [e[1].split(".")[0] for e in entries[a:b + 1]]
+    return {"total": len(ops) / Q1_UNROLL,
+            "fp64": sum(op in FP64_OPCODES for op in ops) / Q1_UNROLL,
+            "mufu": ops.count("MUFU") / Q1_UNROLL, "calls": ops.count("CALL") / Q1_UNROLL}, \
+        sorted(d - c + 1 for c, d in loops)
+
+
+def smoothed_inputs(dtype, seed=11):
+    """F (N9B, J9B) of |F| about 3, labels, stds in [0, 0.9] and the GH16
+    rule on the card, in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    f = 3.0 * torch.randn((N9B, J9B), generator=g, dtype=torch.float64)
+    y = (torch.rand(N9B, generator=g, dtype=torch.float64) > 0.5).to(torch.float64)
+    s = 0.9 * torch.rand(N9B, generator=g, dtype=torch.float64)
+    nodes, weights = np.polynomial.hermite.hermgauss(Q9B)
+    as_t = lambda a: torch.as_tensor(a).to(device="cuda", dtype=dtype)  # noqa: E731
+    return as_t(f), [as_t(y), as_t(s), as_t(nodes), as_t(weights)]
+
+
+def phase_smoothed(sbk, build):
+    """Q1 against its plain version at the rice main's shape, fp64 and fp32:
+    the gaps, a bitwise rerun, the device split, the call's ms between
+    events, the host's enqueue, the plain version's ms and kernel count; the
+    bound from the bytes and the node loop's SASS."""
+    res = {}
+    mix, loops = q1_node_mix(build.library_path("smoothed_bernoulli"))
+    log("  Q1 fp64 node loop (SASS a node): " + ("not measured (no cuobjdump or no loop)"
+                                                if mix is None else mix_text(mix))
+        + f"; the kernel's innermost loops, instructions: {loops}")
+    for dtype in (torch.float64, torch.float32):
+        f, rule = smoothed_inputs(dtype)
+        kernel = lambda: sbk.smoothed_bernoulli(f, *rule)  # noqa: E731
+        plain = lambda: sbk.smoothed_bernoulli_reference(f, *rule)  # noqa: E731
+        got_cost, got_dc = kernel()
+        want_cost, want_dc = plain()
+        dc_gap = float((got_dc - want_dc).abs().max() / want_dc.abs().max())
+        cost_gap = float((got_cost - want_cost).abs().max() / want_cost.abs().max())
+        tol = TOL9B[dtype]
+        require(dc_gap <= tol[0] and cost_gap <= tol[1],
+                f"Q1 {dtype}: dc gap {dc_gap:.3e}, cost gap {cost_gap:.3e} (limits {tol})")
+        again = kernel()
+        require(torch.equal(again[0], got_cost) and torch.equal(again[1], got_dc),
+                f"Q1 {dtype}: a rerun differs")
+        split = profiled_device_split(kernel, Q1_KERNELS, 50)
+        call_ms = cuda_ms(kernel, reps=50, warmup=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            kernel()
+        enqueue_us = 1e6 * (time.perf_counter() - t0) / 50
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(plain, reps=5)
+        plain_kernels = profiled_kernel_count(plain)
+        bytes_ms = 1e3 * 2 * N9B * J9B * f.element_size() / HBM_BYTES_PER_S  # F read, dc written
+        log(f"  Q1 {str(dtype)[6:]} {N9B} x {J9B}, Q = {Q9B}: dc gap {dc_gap:.3e}, cost gap "
+            f"{cost_gap:.3e} (limits {tol[0]:g}, {tol[1]:g}); rerun bitwise equal; device "
+            f"{split_text(split)}; call {call_ms:.4f} ms; host enqueue {enqueue_us:.1f} us a "
+            f"call; plain {plain_ms:.4f} ms ({plain_kernels} kernels a call); bytes bound "
+            f"{bytes_ms:.4f} ms")
+        if dtype == torch.float64:
+            res.update(max_abs_err=float((got_dc - want_dc).abs().max()), ms=call_ms,
+                       plain_ms=plain_ms, device_ms=sum_measured(split))
+            warps = N9B * J9B / 32
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            bounds = {"bytes": bytes_ms}
+            if mix is not None:  # one warp instruction a clock a scheduler, 4 an SM
+                per_clock = 4 * sms * SM_CLOCK_HZ
+                bounds["issue"] = 1e3 * warps * Q9B * mix["total"] / per_clock
+                bounds["fp64 pipe"] = (1e3 * warps * Q9B * mix["fp64"] * FP64_CLOCKS_A_WARP_OP
+                                       / per_clock)
+            res["bound_by"] = max(bounds, key=bounds.get)
+            res["bound_ms"] = bounds[res["bound_by"]]
+            device = res["device_ms"]
+            log("  Q1 fp64 bound: " + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items())
+                + f" ({sms} SMs at {SM_CLOCK_HZ / 1e9:.2f} GHz); the kernel runs at "
+                + ("a share not measured" if device is None
+                   else f"{100 * res['bound_ms'] / device:.1f}%") + " of its bound")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 10: the slice 3 main path, bench.py's IPB cells
 # --------------------------------------------------------------------------
 STEPS10 = 2000
@@ -2221,7 +2352,8 @@ def phase_harness(counters):
         accuracy = values[("pls-onb", "acc_test")]
         require(accuracy > max(ACCURACY_MIN13, ACCURACY_MIN10),
                 f"pls-onb test accuracy {accuracy} <= {max(ACCURACY_MIN13, ACCURACY_MIN10)}")
-        require(launches_b["gram"] >= 1, f"classification main: B2 {launches_b['gram']}")
+        require(launches_b["gram"] >= 1 and launches_b["smoothed"] >= 1,
+                f"classification main: B2 {launches_b['gram']}, Q1 {launches_b['smoothed']}")
         log(f"  (b) {len(values)} values, finite; pls-onb test accuracy {accuracy:.4f} (limit "
             f"{max(ACCURACY_MIN13, ACCURACY_MIN10)}), AUC {values[('pls-onb', 'auc_test')]:.4f}, "
             f"NLL {values[('pls-onb', 'nll_test')]:.4f}; svgp accuracy "
@@ -2738,7 +2870,7 @@ def phase_results(counters, smi):
 # --------------------------------------------------------------------------
 # phase 17: slice 10, the graphed training runs against their eager form
 # --------------------------------------------------------------------------
-def phase_graph_runs():
+def phase_graph_runs(smoothed):
     """The training runs that loop over steps on the host through
     ``scripts/graph_runs.py``, at the UCI mains' shapes, fp64: each graphed
     run (one step captured into a CUDA graph, replayed in chunks) against
@@ -2746,7 +2878,8 @@ def phase_graph_runs():
     ms a step, host syncs and launch calls both ways; and B2 with its
     outputscale read on the device against the same gram from a host value.
     The exact GP, the Dirichlet GP, the SVGP and the two ``off`` tiers; a
-    run that stops inside a chunk and one that stops on a NaN."""
+    run that stops inside a chunk and one that stops on a NaN. Returns Q1's
+    launches (``smoothed``, the smoothed-Bernoulli ``off`` tier's)."""
     from projected_langevin_sampling_torch.ops.cuda.gram import ard_gram_scaled
     from projected_langevin_sampling_torch.utils import early_stopper
 
@@ -2759,7 +2892,12 @@ def phase_graph_runs():
             "B2 with its outputscale on the device differs from the host value's gram")
     log("  B2 with the outputscale read on the device: bit for bit the host value's gram")
     runs = runpy.run_path(os.path.join(ROOT, "scripts", "graph_runs.py"))
+    smoothed.launches = 0
     results = runs["hold_all"]("cuda", log=log)
+    torch.cuda.synchronize()
+    launches = smoothed.launches
+    log(f"  Q1 launches over the runs: {launches}")
+    require(launches >= 1, "the smoothed-Bernoulli off tier did not launch Q1")
     chunk = early_stopper.CHECK_EVERY
     for r in results:
         g, e = r["graph"], r["eager"]
@@ -2781,7 +2919,7 @@ def phase_graph_runs():
             f"the stopping run recorded {stop['recorded']} epochs in {stop['steps_launched']}")
     nan = by_name["stop on a NaN"]["graph"]
     require(nan["recorded"] < by_name["stop on a NaN"]["steps"], "the NaN run did not stop")
-    return results
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2860,6 +2998,7 @@ def main() -> int:
     from projected_langevin_sampling_torch.ops.cuda import general_train as gen
     from projected_langevin_sampling_torch.ops.cuda import quadratic_train as quad
     from projected_langevin_sampling_torch.ops.cuda import fused_update as fused
+    from projected_langevin_sampling_torch.ops.cuda import smoothed_bernoulli as sbk
     from projected_langevin_sampling_torch.ops.cuda import tc_product as tc
 
     # phase 1: environment and build
@@ -2925,9 +3064,11 @@ def main() -> int:
                      phase_quadratic, pt, quad, tc)
     fused_res = phase("phase 9: B5 fused update against its plain version", phase_fused, pt,
                       fused)
+    q1_res = phase(f"phase 9b: Q1 smoothed-Bernoulli quadrature against its plain version, "
+                   f"{N9B} x {J9B}, Q = {Q9B}", phase_smoothed, sbk, build)
     counters = {"gram": gram.ard_gram_scaled, "spectral": spec.spectral_train,
                 "general": gen.general_train, "quadratic": quad.quadratic_train,
-                "fused": fused.fused_update}
+                "fused": fused.fused_update, "smoothed": sbk.smoothed_bernoulli}
     launches_10 = phase(f"phase 10: slice 3 main path, the inducing-point basis, N={N}, M={M}, "
                         f"J={J}, fp32", phase_ipb_path, pt, counters)
     launches_11 = phase(f"phase 11: slice 4 main path, the UCI regression protocol at kin8nm's "
@@ -2948,9 +3089,10 @@ def main() -> int:
     launches_16 = phase("phase 16: slice 9, the results pipeline over the UCI mains on "
                         "diabetes_sklearn and wine_uci, data seeds 0-2, fp64, depth cut",
                         phase_results, counters, smi)
-    phase("phase 17: slice 10, the graphed training runs (exact GP, Dirichlet GP, SVGP, the "
-          "Student-T and smoothed-Bernoulli off tiers, a stop inside a chunk and on a NaN) "
-          "against their eager form, fp64", phase_graph_runs)
+    launches_17 = phase("phase 17: slice 10, the graphed training runs (exact GP, Dirichlet GP, "
+                        "SVGP, the Student-T and smoothed-Bernoulli off tiers, a stop inside a "
+                        "chunk and on a NaN) against their eager form, fp64", phase_graph_runs,
+                        sbk.smoothed_bernoulli)
     launches_18 = phase(f"phase 18: slice 11, the preconditioned mixture main on curve {CURVE18} "
                         "against its CPU spread over PLS seeds, fp64, depth cut",
                         phase_mixture_precond, counters)
@@ -2990,6 +3132,14 @@ def main() -> int:
          "replaces": "projected_langevin_sampling_tpu/ops/pallas/fused_update.py:134",
          "launches": launches_10["langevin_steps"]["fused"], "library_ms": None,
          "matched": True, **fused_res},
+        {"name": "smoothed_bernoulli", "route": "cuda",
+         "source": "projected_langevin_sampling_torch/csrc/smoothed_bernoulli.cu",
+         "replaces": None,  # port only: the JAX package's off tier runs it as XLA code
+         # the smoothed cost's off tier in the harnesses (phases 13-16) and
+         # the graphed runs (phase 17)
+         "launches": (launches_13["smoothed"] + launches_14["smoothed"] + launches_15["smoothed"]
+                      + launches_16["smoothed"] + launches_17),
+         "library_ms": None, "matched": True, **q1_res},
     ]
     key_order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "matched",

@@ -3,6 +3,7 @@
 // stopper kept in device memory. Both multiply on the tensor cores through
 // tc_product.cuh. Partial sums go through block_sum and sum_partials in a
 // fixed order, never through atomics, so a rerun is bitwise equal.
+// smoothed_bernoulli.cu sums its column partials with sum_partials too.
 
 #pragma once
 
@@ -38,10 +39,12 @@ struct StopState {
 };
 
 // Sum of n partials over STOP_THREADS threads in a fixed order; every thread
-// gets the total.
-__device__ __forceinline__ double sum_partials(const double* __restrict__ partials, int n,
-                                               double (&red)[STOP_THREADS]) {
-  double s = 0.0;
+// gets the total. T is double for the trainers, T of the input for
+// smoothed_bernoulli.cu.
+template <typename T>
+__device__ __forceinline__ T sum_partials(const T* __restrict__ partials, int n,
+                                          T (&red)[STOP_THREADS]) {
+  T s = 0;
   for (int i = threadIdx.x; i < n; i += STOP_THREADS) s += partials[i];
   red[threadIdx.x] = s;
   __syncthreads();

@@ -17,7 +17,8 @@ from projected_langevin_sampling_torch.utils.prng import GeneratorLike, as_gener
 class PLSCostMixin:
     """Method mixin for the cost dataclasses, which provide ``link_function``
     and ``y_train`` (and may provide ``observation_noise``) and implement
-    ``calculate_cost``, ``calculate_cost_derivative`` and ``predict``."""
+    ``calculate_cost``, ``calculate_cost_derivative`` and ``predict``.
+    ``calculate_cost_and_derivative`` is the two in one call."""
 
     def calculate_cost(self, untransformed_train_prediction_samples: torch.Tensor) -> torch.Tensor:
         """Per-particle cost: (N, J) -> (J,)."""
@@ -28,6 +29,15 @@ class PLSCostMixin:
     ) -> torch.Tensor:
         """d cost_j / d F[n, j]: (N, J) -> (N, J)."""
         raise NotImplementedError
+
+    def calculate_cost_and_derivative(
+        self, untransformed_train_prediction_samples: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(cost (J,), dc (N, J)) of one F, as the ``off`` tier's step takes
+        them: the two methods above, in that order. A cost with a kernel for
+        both (the smoothed Bernoulli) overrides it."""
+        f = untransformed_train_prediction_samples
+        return self.calculate_cost(f), self.calculate_cost_derivative(f)
 
     def predict(self, prediction_samples: torch.Tensor):
         """The predictive distribution from (N, J) output-space samples."""

@@ -12,12 +12,19 @@ by Gauss-Hermite quadrature. With ``smoothing_std == 0`` both reduce to the
 sigmoid ``BernoulliCost``. It is a class of its own, not a ``BernoulliCost``
 subclass, so that the general kernel's cost dispatch cannot mistake it for
 the plain sigmoid kind.
+
+The two methods are plain PyTorch, node by node (the MAP mean constant
+differentiates them with ``torch.func``). ``calculate_cost_and_derivative``,
+which the ``off`` tier's step calls, runs both in one pass of the kernel
+``ops/cuda/smoothed_bernoulli.py`` for every CUDA F, in the dtype the two
+methods would give (F and the rule cast to it; the kernel takes float32 and
+float64 and raises on others), and the two methods for a CPU F.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
+import functools
 
 import numpy as np
 import torch
@@ -28,13 +35,12 @@ from projected_langevin_sampling_torch.models.link_functions import (
     PLSLinkFunction,
     SigmoidLinkFunction,
 )
+from projected_langevin_sampling_torch.ops.cuda.smoothed_bernoulli import (
+    gauss_hermite_mean,
+    smoothed_bernoulli,
+    softplus,
+)
 from projected_langevin_sampling_torch.utils.device import as_tensor
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as ``logaddexp(x, 0)`` = max(x, 0) + log1p(e^-|x|), the
-    JAX form (torch's own softplus switches to x above a threshold)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,18 +69,10 @@ class SmoothedBernoulliCost(PLSCostMixin):
     def predict(self, prediction_samples: torch.Tensor) -> Bernoulli:
         return Bernoulli(probs=torch.mean(prediction_samples, dim=1))
 
-    def _expected(self, f: torch.Tensor, fn) -> torch.Tensor:
-        """E_z[fn(F + s z)] by Gauss-Hermite, accumulated node by node so
-        that only (N, J) buffers are live, never an (N, J, Q) one."""
-        scale = math.sqrt(2.0) * self.smoothing_std[:, None]
-        acc = torch.zeros_like(f)
-        for q in range(self.gh_nodes.shape[0]):
-            acc = acc + self.gh_weights[q] * fn(f + scale * self.gh_nodes[q])
-        return acc / math.sqrt(math.pi)
-
     def calculate_cost(self, untransformed_train_prediction_samples: torch.Tensor) -> torch.Tensor:
         f = untransformed_train_prediction_samples
-        return torch.sum(self._expected(f, softplus) - self.y_train[:, None] * f, dim=0)
+        rule = (self.smoothing_std, self.gh_nodes, self.gh_weights)
+        return torch.sum(gauss_hermite_mean(f, *rule, softplus) - self.y_train[:, None] * f, dim=0)
 
     def calculate_cost_derivative(
         self, untransformed_train_prediction_samples: torch.Tensor, force_autograd: bool = False
@@ -82,7 +80,22 @@ class SmoothedBernoulliCost(PLSCostMixin):
         if force_autograd:
             return self._calculate_cost_derivative_autograd(untransformed_train_prediction_samples)
         f = untransformed_train_prediction_samples
-        return self._expected(f, torch.sigmoid) - self.y_train[:, None]
+        rule = (self.smoothing_std, self.gh_nodes, self.gh_weights)
+        return gauss_hermite_mean(f, *rule, torch.sigmoid) - self.y_train[:, None]
+
+    def calculate_cost_and_derivative(
+        self, untransformed_train_prediction_samples: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(cost (J,), dc (N, J)): one kernel pass on a CUDA F, the two
+        methods on a CPU F. The kernel computes in the dtype the two methods'
+        type promotion gives (fp64 F with fp32 labels: fp64)."""
+        f = untransformed_train_prediction_samples
+        if f.device.type != "cuda":
+            return super().calculate_cost_and_derivative(f)
+        rule = (self.y_train, self.smoothing_std, self.gh_nodes, self.gh_weights)
+        dtype = functools.reduce(torch.promote_types, (t.dtype for t in rule), f.dtype)
+        return smoothed_bernoulli(f.to(dtype).contiguous(),
+                                  *(t.to(dtype).contiguous() for t in rule))
 
 
 def make_smoothed_bernoulli_cost(

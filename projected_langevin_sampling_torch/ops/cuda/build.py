@@ -24,7 +24,8 @@ import threading
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "cuda")
-SOURCES = ("gram", "spectral_train", "general_train", "quadratic_train", "fused_update")
+SOURCES = ("gram", "spectral_train", "general_train", "quadratic_train", "fused_update",
+           "smoothed_bernoulli")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

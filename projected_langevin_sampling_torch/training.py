@@ -2,7 +2,11 @@
 
 Tiers (all compute the same posterior):
   "off"             general N-space loop, any cost, both bases (the split
-                    discretisations on the ONB only);
+                    discretisations on the ONB only); a step takes the
+                    cost and its derivative of one F in one call
+                    (``calculate_cost_and_derivative``), which for the
+                    smoothed Bernoulli cost on CUDA tensors is one pass of
+                    the hand-written kernel ``ops/cuda/smoothed_bernoulli.py``;
   "quadratic"       Gaussian-identity cost: the M-space normal equations, the
                     same trajectory as "off" for the same noise (Euler);
   "quadratic_fused" the quadratic tier as one whole run: on CUDA tensors the
@@ -578,15 +582,17 @@ def _train_pls_loop(
             update = _split_update(basis, eta, discretisation, draw)
 
         def step(t, state):
-            # carries F = P U: the F of this step's energy is the next step's
-            # derivative input
-            u, pred = state
-            u_new = update(u, cost.calculate_cost_derivative(pred), t)
+            # carries dc(F), F = P U: one call gives the cost of this step's
+            # energy and the derivative of the next step's update
+            u, dc = state
+            u_new = update(u, dc, t)
             pred_new = basis.calculate_untransformed_train_prediction_samples(u_new)
-            energy_j = basis.calculate_particle_energies(u_new, cost.calculate_cost(pred_new))
-            return (u_new, pred_new), column_mean(energy_j, shard)
+            cost_j, dc_new = cost.calculate_cost_and_derivative(pred_new)
+            energy_j = basis.calculate_particle_energies(u_new, cost_j)
+            return (u_new, dc_new), column_mean(energy_j, shard)
 
-        state0 = (particles, basis.calculate_untransformed_train_prediction_samples(particles))
+        pred0 = basis.calculate_untransformed_train_prediction_samples(particles)
+        state0 = (particles, cost.calculate_cost_and_derivative(pred0)[1])
     else:
         raise ValueError(f"Unknown tier {tier!r}")
     run = run_training(
