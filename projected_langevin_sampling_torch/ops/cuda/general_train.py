@@ -7,13 +7,15 @@ Replaces ``projected_langevin_sampling_tpu/ops/pallas/general_train.py``
     F  = P U + m0,   dc = d cost / d F (one of COST_KINDS, closed form),
     G  = P^T dc
     euler:  U' = U - eta (G + U / lambda) + sqrt(2 eta) eps
-    split:  U' = dec (U - eta ds G) + nscale eps
+    split:  U' = x - (1 - dec) x + nscale eps,  x = U - eta ds G
 
 with the energy of each update, mean_j(cost_j + 0.5 sum_i U^2 / lambda_i),
 and the reference's early stopping: the stop step's update is applied and
 its energy written but not recorded, the particles freeze after it and later
 energies are NaN. The split schemes' row constants are
-:func:`split_row_constants`.
+:func:`split_row_constants`, whose decay is its complement 1 - dec, which fp32
+holds to its own precision where dec itself, rounded, would bias every step
+alike.
 
 Bound on the H100: operations, 4 N M_k J flops of two fp32 products per step
 (three TF32 products each on the tensor cores) plus the cost kind's special
@@ -34,7 +36,12 @@ slices of N, whose partial tiles go to a slab of scratch.
 :func:`general_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`general_train_reference` only for
 tensors that lie on the CPU. ``general_train.launches`` counts whole runs
-(one C call queues the 3 T + 2 kernel launches of a run).
+(one C call queues the 3 T + 2 kernel launches of a run), and
+``general_train.steps`` the steps those runs queue. Under the profiler a
+call is the span ``pls.general_train`` (``utils/tracing.span``); on CUDA
+tensors it holds ``.prepare`` (the casts, the row constants, the GH16
+scalars and the buffers), ``.launch`` (the C call) and ``.stopper`` (the
+stopper's replay, which reads the energies back).
 
 A ``shard`` (:class:`~projected_langevin_sampling_torch.utils.columns.ColumnShard`)
 runs columns j0 .. j0 + J_loc of a J-column run: the kernel counts its
@@ -64,6 +71,7 @@ from projected_langevin_sampling_torch.utils.early_stopper import (
     run_training,
     take,
 )
+from projected_langevin_sampling_torch.utils.tracing import span
 
 # the order of the kernel's CostKind enum
 COST_KINDS = (
@@ -117,28 +125,38 @@ def step_operations(kind: str, n: int, m_k: int, j: int) -> int:
 
 
 def split_row_constants(eigenvalues: torch.Tensor, eta: float, discretisation: str):
-    """``(inv_lam, dec, ds, nscale)``, each (M_k,) in the eigenvalues' dtype.
+    """``(inv_lam, one_minus_dec, ds, nscale)``, each (M_k,) in the
+    eigenvalues' dtype; the split update is U' = x - one_minus_dec x +
+    nscale eps with x = U - eta ds P^T dc.
 
     exponential: the prior drift and its noise integrated exactly,
       dec = exp(-eta / lam), ds = 1, nscale = sqrt(lam (1 - exp(-2 eta / lam)));
     preconditioned: Lambda-preconditioned Langevin with the exact OU prior step,
       dec = exp(-eta), ds = lam, nscale = sqrt(lam (1 - exp(-2 eta)));
-    euler: dec = ds = 1, nscale = 0 (unused)."""
+    euler: dec = ds = 1, nscale = 0 (unused).
+
+    The decay enters as its complement 1 - dec, from expm1: in fp32 a rounded
+    dec = e^-eta is off by up to 2^-25 relative, and the update compounds the
+    same error at every step (after T steps the particles' start is off by up
+    to T 2^-25 of itself, 2e-5 at T = 2000, eta = 1e-3, and the stationary
+    variance by up to 2^-25 / eta), where the complement carries its rounding
+    on a number of size eta."""
     lam = eigenvalues
     inv_lam = 1.0 / lam
     if discretisation == "exponential":
-        dec = torch.exp(-eta / lam)
+        one_minus_dec = -torch.expm1(-eta / lam)
         ds = torch.ones_like(lam)
         nscale = torch.sqrt(lam * -torch.expm1(-2.0 * eta / lam))
     elif discretisation == "preconditioned":
-        dec = torch.full_like(lam, math.exp(-eta))
+        one_minus_dec = torch.full_like(lam, -math.expm1(-eta))
         ds = lam
         nscale = torch.sqrt(lam * -math.expm1(-2.0 * eta))
     elif discretisation == "euler":
-        dec, ds, nscale = torch.ones_like(lam), torch.ones_like(lam), torch.zeros_like(lam)
+        one_minus_dec, nscale = torch.zeros_like(lam), torch.zeros_like(lam)
+        ds = torch.ones_like(lam)
     else:
         raise ValueError(f"Unknown discretisation {discretisation!r}")
-    return inv_lam, dec, ds, nscale
+    return inv_lam, one_minus_dec, ds, nscale
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -220,7 +238,7 @@ def general_train_reference(
     kernel's 3xTF32 product there). Returns ``(u, energies, recorded,
     steps_run)``."""
     dtype, device = u0.dtype, u0.device
-    inv_lam, dec, ds, nscale = (
+    inv_lam, one_minus_dec, ds, nscale = (
         c[:, None] for c in split_row_constants(eigenvalues, eta, discretisation)
     )
     root2eta = math.sqrt(2.0 * eta)
@@ -239,7 +257,8 @@ def general_train_reference(
             u_new = u - eta * (g + u * inv_lam)
             scale = root2eta
         else:
-            u_new = dec * (u - eta * (ds * g))
+            x = u - eta * (ds * g)
+            u_new = x - one_minus_dec * x
             scale = nscale
         if not zero_noise:
             eps = take(noise, t) if noise is not None else column_normals(
@@ -283,78 +302,86 @@ def general_train(
     the plain loop. ``zero_noise`` switches the noise off for exact comparison
     with the plain version. ``shard``: the columns of a J-column run these
     particles are (module note). On CPU tensors the plain loop runs."""
-    if kind not in COST_KINDS:
-        raise ValueError(f"general_train: unknown cost kind {kind!r}")
-    if discretisation not in DISCRETISATIONS:
-        raise ValueError(f"general_train: unknown discretisation {discretisation!r}")
-    params = tuple(float(v) for v in params)
-    if u0.device.type == "cpu":
-        return general_train_reference(
-            p, u0, y, eigenvalues, kind, eta=eta, patience=patience, num_steps=num_steps,
-            params=params, mean_shift=mean_shift, aux=aux, discretisation=discretisation,
-            zero_noise=zero_noise, noise=noise, generator=generator, shard=shard,
-        )
-    if u0.device.type != "cuda":
-        raise ValueError(f"general_train: particles on {u0.device}")
-    if noise is not None:
-        raise ValueError("general_train: the kernel draws its own Philox noise; "
-                         "injected noise is for CPU tensors")
-    if p.ndim != 2 or u0.ndim != 2 or u0.shape[0] != p.shape[1]:
-        raise ValueError(f"general_train: P {tuple(p.shape)} and U0 {tuple(u0.shape)}")
-    n, m_k = p.shape
-    j = u0.shape[1]
-    for name, t, shape in (("P", p, (n, m_k)), ("y", y, (n,)), ("eigenvalues", eigenvalues, (m_k,)),
-                           ("aux", aux, (n,))):
-        if t is not None and (t.shape != shape or t.device != u0.device):
-            raise ValueError(f"general_train: {name} of shape {tuple(t.shape)} on {t.device}")
-    if not 0 <= int(seed) < 2**64:
-        raise ValueError(f"general_train: seed {seed} outside [0, 2^64)")
-    if max(n * j, m_k * j, n * m_k) >= 2**31:
-        raise ValueError("general_train: a matrix has 2^31 or more elements")
-    j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
-    if j0 % 4:
-        raise ValueError(f"general_train: a shard starts at column {j0}, not a multiple of 4")
-    dtype, device = u0.dtype, u0.device
-    if num_steps == 0:
-        empty = torch.zeros(0, dtype=dtype, device=device)
-        return u0.clone(), empty, empty.bool(), torch.tensor(0, dtype=torch.int32)
-    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    # in the input's dtype, as the plain version computes them
-    row_constants = [f32(c) for c in split_row_constants(eigenvalues, eta, discretisation)]
-    p32, y32 = f32(p), f32(y)
-    aux32 = torch.zeros_like(y32) if aux is None else f32(aux)
-    # the kernel's 4 + 2 x 16 scalars, read on the host by the C entry point
-    host_params = torch.tensor(
-        [*params, float(mean_shift), *_GH16_SCALED_NODES, *_GH16_SCALED_WEIGHTS],
-        dtype=torch.float32,
-    )
-    upd = tc_product.split_k(m_k, j, n)  # a prior partial and a counter per tile
-    with torch.cuda.device(device):
-        u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
-        u_b = torch.empty_like(u_a)
-        dc = torch.empty((n, j), dtype=torch.float32, device=device)
-        cost_partials = torch.empty(tc_product.tiles(n, j), dtype=torch.float64, device=device)
-        prior_partials = torch.empty(upd.tiles, dtype=torch.float64, device=device)
-        slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=device)
-        counters = torch.empty(upd.tiles, dtype=torch.int32, device=device)
-        energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
-        state = torch.empty(4, dtype=torch.int32, device=device)
-        err = build.load("general_train", _SIGNATURES).plst_general_train(
-            p32.data_ptr(), y32.data_ptr(), aux32.data_ptr(),
-            *(c.data_ptr() for c in row_constants),
-            u_a.data_ptr(), u_b.data_ptr(), dc.data_ptr(), cost_partials.data_ptr(),
-            prior_partials.data_ptr(), slabs.data_ptr(), counters.data_ptr(),
-            energies.data_ptr(), state.data_ptr(), n, m_k, j, j0, j_total, int(num_steps),
-            COST_KINDS.index(kind), DISCRETISATIONS.index(discretisation), upd.slices,
-            host_params.data_ptr(), float(eta), float(patience), int(seed), int(zero_noise),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    with span("pls.general_train"):
+        if kind not in COST_KINDS:
+            raise ValueError(f"general_train: unknown cost kind {kind!r}")
+        if discretisation not in DISCRETISATIONS:
+            raise ValueError(f"general_train: unknown discretisation {discretisation!r}")
+        params = tuple(float(v) for v in params)
+        if u0.device.type == "cpu":
+            return general_train_reference(
+                p, u0, y, eigenvalues, kind, eta=eta, patience=patience, num_steps=num_steps,
+                params=params, mean_shift=mean_shift, aux=aux, discretisation=discretisation,
+                zero_noise=zero_noise, noise=noise, generator=generator, shard=shard,
+            )
+        if u0.device.type != "cuda":
+            raise ValueError(f"general_train: particles on {u0.device}")
+        if noise is not None:
+            raise ValueError("general_train: the kernel draws its own Philox noise; "
+                             "injected noise is for CPU tensors")
+        if p.ndim != 2 or u0.ndim != 2 or u0.shape[0] != p.shape[1]:
+            raise ValueError(f"general_train: P {tuple(p.shape)} and U0 {tuple(u0.shape)}")
+        n, m_k = p.shape
+        j = u0.shape[1]
+        for name, t, shape in (("P", p, (n, m_k)), ("y", y, (n,)),
+                               ("eigenvalues", eigenvalues, (m_k,)), ("aux", aux, (n,))):
+            if t is not None and (t.shape != shape or t.device != u0.device):
+                raise ValueError(f"general_train: {name} of shape {tuple(t.shape)} on {t.device}")
+        if not 0 <= int(seed) < 2**64:
+            raise ValueError(f"general_train: seed {seed} outside [0, 2^64)")
+        if max(n * j, m_k * j, n * m_k) >= 2**31:
+            raise ValueError("general_train: a matrix has 2^31 or more elements")
+        j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
+        if j0 % 4:
+            raise ValueError(f"general_train: a shard starts at column {j0}, not a multiple of 4")
+        dtype, device = u0.dtype, u0.device
+        if num_steps == 0:
+            empty = torch.zeros(0, dtype=dtype, device=device)
+            return u0.clone(), empty, empty.bool(), torch.tensor(0, dtype=torch.int32)
+        with span("pls.general_train.prepare"):
+            f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+            # in the input's dtype, as the plain version computes them
+            row_constants = [f32(c) for c in split_row_constants(eigenvalues, eta, discretisation)]
+            p32, y32 = f32(p), f32(y)
+            aux32 = torch.zeros_like(y32) if aux is None else f32(aux)
+            # the kernel's 4 + 2 x 16 scalars, read on the host by the C entry point
+            host_params = torch.tensor(
+                [*params, float(mean_shift), *_GH16_SCALED_NODES, *_GH16_SCALED_WEIGHTS],
+                dtype=torch.float32,
+            )
+            upd = tc_product.split_k(m_k, j, n)  # a prior partial and a counter per tile
+            with torch.cuda.device(device):
+                u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
+                u_b = torch.empty_like(u_a)
+                dc = torch.empty((n, j), dtype=torch.float32, device=device)
+                cost_partials = torch.empty(tc_product.tiles(n, j), dtype=torch.float64,
+                                            device=device)
+                prior_partials = torch.empty(upd.tiles, dtype=torch.float64, device=device)
+                slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=device)
+                counters = torch.empty(upd.tiles, dtype=torch.int32, device=device)
+                energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
+                state = torch.empty(4, dtype=torch.int32, device=device)
+            library = build.load("general_train", _SIGNATURES)
+        with span("pls.general_train.launch"), torch.cuda.device(device):
+            err = library.plst_general_train(
+                p32.data_ptr(), y32.data_ptr(), aux32.data_ptr(),
+                *(c.data_ptr() for c in row_constants),
+                u_a.data_ptr(), u_b.data_ptr(), dc.data_ptr(), cost_partials.data_ptr(),
+                prior_partials.data_ptr(), slabs.data_ptr(), counters.data_ptr(),
+                energies.data_ptr(), state.data_ptr(), n, m_k, j, j0, j_total, int(num_steps),
+                COST_KINDS.index(kind), DISCRETISATIONS.index(discretisation), upd.slices,
+                host_params.data_ptr(), float(eta), float(patience), int(seed), int(zero_noise),
+                torch.cuda.current_stream().cuda_stream,
+            )
         build.check(err, "general_train kernel")
         general_train.launches += 1
+        general_train.steps += int(num_steps)
         u = u_a if num_steps % 2 == 0 else u_b
         energies = energies.to(dtype)
-        recorded, steps_run = replay_early_stopper(energies, eta, patience)
-    return u.to(dtype), energies, recorded, steps_run
+        with span("pls.general_train.stopper"), torch.cuda.device(device):
+            recorded, steps_run = replay_early_stopper(energies, eta, patience)
+        return u.to(dtype), energies, recorded, steps_run
 
 
 general_train.launches = 0
+general_train.steps = 0

@@ -606,18 +606,23 @@ def _train_pls_loop(
 def _split_update(basis, eta: float, discretisation: str, draw):
     """The split schemes' update (ONB only): an explicit data sub-step, then
     the exact OU flow of the prior and its noise,
-    U' = dec (U - eta ds P^T dc) + nscale eps."""
+    U' = x - (1 - dec) x + nscale eps with x = U - eta ds P^T dc (the decay
+    as its complement, as ``split_row_constants`` gives it)."""
     if not isinstance(basis, OrthonormalBasis):
         raise ValueError(
             f"discretisation={discretisation!r} requires the ONB basis "
             "(route IPB through training.ipb_w_space_view)"
         )
     lam = basis.eigenvalues.to(basis.train_projection.dtype)
-    _, dec, ds, nscale = (c[:, None] for c in split_row_constants(lam, eta, discretisation))
+    _, one_minus_dec, ds, nscale = (
+        c[:, None] for c in split_row_constants(lam, eta, discretisation)
+    )
     projection = basis.train_projection
 
     def update(u, dc, t):
-        return dec * (u - eta * (ds * (projection.T @ dc))) + nscale * draw(t)
+        x = u - eta * (ds * (projection.T @ dc))
+        # x - (1 - dec) x in one elementwise pass
+        return torch.addcmul(x, one_minus_dec, x, value=-1.0) + nscale * draw(t)
 
     return update
 

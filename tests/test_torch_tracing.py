@@ -1,5 +1,6 @@
 """The program's spans (``utils/tracing.span``) in ``train_pls`` (the ``off``
-tier), ``fit_svgp`` and ``fit_exact_gp``.
+tier), ``fit_svgp`` and ``fit_exact_gp``, and in the general-cost kernel's
+wrapper.
 
 With no profiler running nothing is constructed. Under
 ``torch.profiler.profile`` a call opens its outer span and one
@@ -67,6 +68,29 @@ def _fit_exact_gp(device="cpu"):
                                  number_of_epochs=STEPS)
     return [gp.mean_constant, gp.kernel.lengthscales, gp.kernel.outputscale, gp.noise,
             torch.tensor(losses)]
+
+
+GENERAL_SPANS = ("pls.general_train.prepare", "pls.general_train.launch",
+                 "pls.general_train.stopper")
+
+
+def _general_fused(device="cpu"):
+    """A smoothed-Bernoulli ONB model trained on the ``general_fused`` tier
+    (preconditioned): the general-cost kernel on the card, its plain loop on
+    the CPU."""
+    dtype = torch.float64 if device == "cpu" else torch.float32
+    rng = np.random.default_rng(0)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    x = as_t(np.sort(rng.uniform(-2.0, 2.0, (40, 1)), 0))
+    y = (torch.sin(2.0 * x[:, 0]) + 0.2 * as_t(rng.normal(size=40)) > 0).to(dtype)
+    z = x[::5][:8]
+    kernel = pt.PLSKernel(base_kernel=pt.ARDKernel(as_t([0.6]), as_t(1.0)),
+                          approximation_samples=z)
+    basis = pt.build_orthonormal_basis(kernel, z, x, verbose=False)
+    pls = pt.PLS(basis, pt.make_smoothed_bernoulli_cost(y, torch.full_like(y, 0.3)))
+    u0 = pls.initialise_particles(6, generator=0)
+    return pt.train_pls(pls, u0, STEPS, 1e-3, generator=3, fast_path="general_fused",
+                        discretisation="preconditioned")
 
 
 # call, its outer span, its read-back span
@@ -161,3 +185,45 @@ def test_a_graphed_run_opens_a_warmup_and_a_capture_a_graph(monkeypatch):
     # no span is mirrored onto the device's timeline, where it would read as work
     assert not [e.name() for e in prof.profiler.kineto_results.events()
                 if e.name().startswith("pls.") and "cuda" in str(e.device_type()).lower()]
+
+
+def test_general_fused_on_the_cpu_opens_the_wrappers_span_only():
+    """On CPU tensors the wrapper runs its plain loop inside ``pls.general_train``:
+    no kernel is prepared, launched or counted."""
+    from projected_langevin_sampling_torch.ops.cuda.general_train import general_train
+
+    before = general_train.launches, general_train.steps
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _general_fused()
+    spans = _spans(prof)
+    names = [s[0] for s in spans]
+    assert names.count("pls.train_pls") == names.count("pls.general_train") == 1
+    assert not set(GENERAL_SPANS) & set(names)
+    outer = next(s for s in spans if s[0] == "pls.train_pls")
+    inner = next(s for s in spans if s[0] == "pls.general_train")
+    assert outer[1] <= inner[1] <= inner[2] <= outer[2]
+    assert (general_train.launches, general_train.steps) == before
+
+
+@pytest.mark.card
+def test_a_general_fused_run_opens_one_launch_and_counts_its_steps():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest tests/test_torch_tracing.py "
+                    "-m card --noconftest)")
+    from projected_langevin_sampling_torch.ops.cuda.general_train import general_train
+
+    _general_fused(device="cuda")  # builds the kernel outside the trace
+    before = general_train.launches, general_train.steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, energies = _general_fused(device="cuda")
+    spans = _spans(prof)
+    names = [s[0] for s in spans]
+    assert [names.count(n) for n in ("pls.general_train", *GENERAL_SPANS)] == [1, 1, 1, 1]
+    where = {name: (a, b) for name, a, b in spans}
+    outer = where["pls.general_train"]
+    assert where["pls.train_pls"][0] <= outer[0] <= outer[1] <= where["pls.train_pls"][1]
+    stages = [where[n] for n in GENERAL_SPANS]
+    assert all(outer[0] <= a <= b <= outer[1] for a, b in stages)
+    assert stages[0][1] <= stages[1][0] and stages[1][1] <= stages[2][0]
+    assert general_train.launches == before[0] + 1
+    assert general_train.steps == before[1] + STEPS == before[1] + len(energies)
