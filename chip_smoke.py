@@ -869,6 +869,7 @@ def headline_basis(pt, x, z):
 
 def phase_general(pt, gen):
     from projected_langevin_sampling_torch.training import general_fused_cost_spec
+    from projected_langevin_sampling_torch.utils.columns import ColumnShard
 
     b3 = ("B3", gen.general_train, gen.general_train_reference)
     res = {}
@@ -878,6 +879,37 @@ def phase_general(pt, gen):
         for disc in gen.DISCRETISATIONS:
             hold_zero_noise(*b3, f"{kind}/{disc} N={N6} M_k={M6} J={J6} T={T6}", **prob,
                          eta=ETA6, patience=math.inf, num_steps=T6, discretisation=disc)
+
+    # ... the smoothed kind's branch-free reciprocal and log1p are the library's
+    # division and log1pf on every float each takes
+    require(gen.check_math() == (0, 0), f"B3 branch-free twins differ: {gen.check_math()}")
+    log("  B3 branch-free reciprocal and log1p: the library's bits on every float each takes "
+        "(1,056,964,608 and 2,139,095,040)")
+
+    # ... the forward's operands, split once on the card, are the plain split's
+    # bit for bit (the headline's and rice's shapes: M_k 512 and 55, padded)
+    for n, m_k, j in ((N, M, J), (3048, 55, 1000)):
+        p = torch.randn((n, m_k), device="cuda")
+        u = torch.randn((m_k, j), device="cuda")
+        k = gen.forward_plan(n, m_k, j).k
+        on_card = gen.split_operands(p, u, k)
+        plain = gen.split_operands_reference(p, u, k)
+        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(on_card, plain)), f"split operands at {(n, m_k, j)}")
+    log("  B3 forward operands split on the card are the plain split's bit for bit "
+        f"(N, M_k, J) = {(N, M, J)} and (3048, 55, 1000)")
+
+    # ... a ragged depth at rice's shape (M_k = 55, padded to 64), and a shard of
+    # columns that starts past column 0
+    prob = synthetic_general("bernoulli_sigmoid_smoothed", n=3048, m_k=55, j=1000, seed=2)
+    hold_zero_noise(*b3, "bernoulli_sigmoid_smoothed/preconditioned N=3048 M_k=55 J=1000 "
+                    f"T={T6}", **prob, eta=ETA6, patience=math.inf, num_steps=T6,
+                    discretisation="preconditioned")
+    prob = synthetic_general("student_t", seed=3)
+    shard = ColumnShard(j0=128, j_total=3 * J6)
+    hold_zero_noise(*b3, f"student_t/exponential shard j0=128 of J={3 * J6} T={T6}", **prob,
+                    eta=ETA6, patience=math.inf, num_steps=T6, discretisation="exponential",
+                    shard=shard)
 
     # ... and the main path's cell at the headline shape, with a nonzero mean shift
     x, labels, std, z = classification_inputs()

@@ -43,11 +43,13 @@
 // products per fp32 product divide that by three (scripts/mma_sync_ceiling.py
 // measures the rate; PERF.md has the numbers). Inside B3 and B5 the products
 // run below that ceiling: a block's loads, barriers and epilogue leave the
-// tensor cores idle part of the time. Why not wgmma yet: its .tf32 forms
+// tensor cores idle part of the time. Why not wgmma here: its .tf32 forms
 // take both operands K-major from shared memory (the transpose flag exists
-// only for 16-bit types), while B3 and B5 read P, D, U and dc in both
-// layouts, and the split would need hi and lo copies of every tile in shared
-// memory. wgmma with TMA is the next step.
+// only for 16-bit types), and the split would need hi and lo copies of every
+// tile in shared memory. B3's forward sweep has moved to wgmma with TMA
+// (general_train.cu, wgmma_tma.cuh): P and U^T are K-major there and are
+// split once a run into TF32 halves in device memory. B3's update product
+// (P^T dc, dc written each step), B4 and B5 still multiply here.
 
 #pragma once
 

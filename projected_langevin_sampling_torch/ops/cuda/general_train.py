@@ -27,10 +27,21 @@ there is one pass whatever the patience. Operands and sums are fp32, the
 products in 3xTF32 (``csrc/tc_product.cuh``), where the TPU kernel feeds
 bf16 to its MXU; like B1 it has no resident-size limit.
 
-Tiling (``ops/cuda/tc_product.py``): the forward product's (N, J) output in
-64 x 128 tiles, one cost partial each; the update's (M_k, J) output in
-64 x 128 tiles, one prior partial and one split-K arrival counter each,
-over :func:`~projected_langevin_sampling_torch.ops.cuda.tc_product.split_k`
+Tiling. The forward sweep (F = P U and the cost epilogue) is one persistent
+block an SM (:func:`forward_plan`): its (N, J) output in 64 x 128 tiles,
+one cost partial each, which block b takes in the fixed order b, b + grid,
+... (:func:`forward_schedule`); in each block a warpgroup multiplies on
+``wgmma``, its thread 0 keeping TMA loads in flight, while twelve warps run
+the cost epilogue of the tile before. ``wgmma`` reads both operands K-major
+from shared memory in TF32, so the forward reads its operands split once
+(:func:`split_operands`): P's TF32 halves (2, N, K) and U^T's (2, J, K), K =
+M_k padded with zero columns to a multiple of ``FORWARD_TILE_K``; the run's
+first launch writes both, and every update writes U'^T's halves beside U'.
+The smoothed kind's division and ``log1pf`` run as branch-free twins that
+give the library's bits on every input they take (:func:`check_math`).
+The update's (M_k, J) output (``ops/cuda/tc_product.py``, ``mma.sync``) in
+64 x 128 tiles, one prior partial and one split-K arrival counter each, over
+:func:`~projected_langevin_sampling_torch.ops.cuda.tc_product.split_k`
 slices of N, whose partial tiles go to a slab of scratch.
 
 :func:`general_train` launches the kernel for CUDA tensors, in fp32 with a
@@ -40,7 +51,8 @@ tensors that lie on the CPU. ``general_train.launches`` counts whole runs
 ``general_train.steps`` the steps those runs queue. Under the profiler a
 call is the span ``pls.general_train`` (``utils/tracing.span``); on CUDA
 tensors it holds ``.prepare`` (the casts, the row constants, the GH16
-scalars and the buffers), ``.launch`` (the C call) and ``.stopper`` (the
+scalars and the buffers, the split operands' 2 (N + J) K floats among
+them: 24 MB at the headline), ``.launch`` (the C call) and ``.stopper`` (the
 stopper's replay, which reads the energies back).
 
 A ``shard`` (:class:`~projected_langevin_sampling_torch.utils.columns.ColumnShard`)
@@ -56,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -112,10 +125,99 @@ OPS_PER_ELEMENT = {
 # with half a Box-Muller pair (as B1's 25 + 6)
 OPS_PER_UPDATE_ELEMENT = 8 + 4 + 31
 
-_SIGNATURES = {"plst_general_train": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
-    ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
-    ctypes.c_void_p,
-]}
+_SIGNATURES = {
+    "plst_general_train": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
+        ctypes.c_void_p,
+    ],
+    "plst_general_split_operands": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "plst_general_check_math": [ctypes.c_void_p, ctypes.c_void_p],
+}
+
+# the forward sweep's stage depth (csrc/general_train.cu fwd::BK): one 128-byte
+# swizzle row of fp32; M_k is padded with zero columns to a multiple of it
+FORWARD_TILE_K = 32
+# the SMs of an H100 SXM: the forward's persistent grid where no card is asked
+H100_SMS = 132
+
+
+class ForwardPlan(NamedTuple):
+    tiles: int  # 64 x 128 tiles of the (N, J) output: cost partials
+    col_tiles: int  # tiles across J
+    k: int  # M_k padded to a multiple of FORWARD_TILE_K: the split operands' depth
+    grid: int  # persistent blocks, one an SM, at most one a tile
+
+
+def forward_plan(n: int, m_k: int, j: int, sms: int = H100_SMS) -> ForwardPlan:
+    """The forward sweep's tiles, padded depth and grid on a card of ``sms``
+    SMs."""
+    tiles = tc_product.tiles(n, j)
+    k = -(-m_k // FORWARD_TILE_K) * FORWARD_TILE_K
+    return ForwardPlan(tiles, -(-j // tc_product.TILE_N), k, min(sms, tiles))
+
+
+def forward_schedule(plan: ForwardPlan) -> list[list[tuple[int, int]]]:
+    """The (row tile, column tile) pairs each block of the forward sweep runs,
+    in its order: block b takes tiles b, b + grid, ..., tile t being row tile
+    t // column tiles and column tile t % column tiles, whose cost partial is
+    entry t (the kernel's order)."""
+    return [[divmod(t, plan.col_tiles) for t in range(b, plan.tiles, plan.grid)]
+            for b in range(plan.grid)]
+
+
+def split_operands_reference(p: torch.Tensor, u: torch.Tensor, k: int):
+    """The forward's operands in plain PyTorch: ``(p_split, ut_split)``, the
+    TF32 halves (:func:`tc_product.tf32_split`) of P (N, M_k) as (2, N, k) and
+    of U^T, U (M_k, J), as (2, J, k), K-major, zero in columns M_k .. k - 1."""
+    def halves(x):
+        out = torch.zeros((2, x.shape[0], k), dtype=torch.float32, device=x.device)
+        out[0, :, :x.shape[1]], out[1, :, :x.shape[1]] = tc_product.tf32_split(x)
+        return out
+
+    return halves(p.to(torch.float32)), halves(u.to(torch.float32).T)
+
+
+def split_operands(p: torch.Tensor, u: torch.Tensor, k: int):
+    """:func:`split_operands_reference` on the card: the kernel's prologue
+    (``init_run_kernel``) alone, for fp32 CUDA tensors; the plain version for
+    CPU tensors."""
+    if p.device.type == "cpu":
+        return split_operands_reference(p, u, k)
+    (n, m_k), j = p.shape, u.shape[1]
+    if p.dtype != torch.float32 or u.dtype != torch.float32 or u.shape[0] != m_k:
+        raise ValueError(f"split_operands: P {tuple(p.shape)} {p.dtype}, U {tuple(u.shape)} "
+                         f"{u.dtype}")
+    p, u = p.contiguous(), u.contiguous()
+    with torch.cuda.device(p.device):
+        p_split = torch.empty((2, n, k), dtype=torch.float32, device=p.device)
+        ut_split = torch.empty((2, j, k), dtype=torch.float32, device=p.device)
+        err = build.load("general_train", _SIGNATURES).plst_general_split_operands(
+            p.data_ptr(), u.data_ptr(), p_split.data_ptr(), ut_split.data_ptr(), n, m_k, k, j,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "general_train split_operands")
+    return p_split, ut_split
+
+
+def check_math(device="cuda") -> tuple[int, int]:
+    """The card's check of the smoothed kind's branch-free reciprocal and
+    log1p against the library's division and ``log1pf``, over every float
+    each takes (d in [1, 2^126); finite a >= 0): the counts of results that
+    differ in a bit, ``(0, 0)`` where they are the library's."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(counts.device):
+        err = build.load("general_train", _SIGNATURES).plst_general_check_math(
+            counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.check(err, "general_train check_math")
+    return tuple(int(v) for v in counts.tolist())
+
+
+def forward_product(p_split: torch.Tensor, ut_split: torch.Tensor) -> torch.Tensor:
+    """The forward's 3xTF32 product P U from its split operands, in fp32:
+    ``(p_lo u_hi + p_hi u_lo) + p_hi u_hi`` over the padded depth, the three
+    products ``tc_product.tf32x3_matmul`` sums (the kernel adds them an
+    8-deep step at a time)."""
+    (p_hi, p_lo), (u_hi, u_lo) = p_split, ut_split
+    return (p_lo @ u_hi.T + p_hi @ u_lo.T) + p_hi @ u_hi.T
 
 
 def step_operations(kind: str, n: int, m_k: int, j: int) -> int:
@@ -350,12 +452,16 @@ def general_train(
                 dtype=torch.float32,
             )
             upd = tc_product.split_k(m_k, j, n)  # a prior partial and a counter per tile
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            fwd = forward_plan(n, m_k, j, sms)  # a cost partial per tile, the split operands
             with torch.cuda.device(device):
                 u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
                 u_b = torch.empty_like(u_a)
                 dc = torch.empty((n, j), dtype=torch.float32, device=device)
-                cost_partials = torch.empty(tc_product.tiles(n, j), dtype=torch.float64,
-                                            device=device)
+                cost_partials = torch.empty(fwd.tiles, dtype=torch.float64, device=device)
+                # written by the kernel: the run's first launch and every update
+                p_split = torch.empty((2, n, fwd.k), dtype=torch.float32, device=device)
+                ut_split = torch.empty((2, j, fwd.k), dtype=torch.float32, device=device)
                 prior_partials = torch.empty(upd.tiles, dtype=torch.float64, device=device)
                 slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=device)
                 counters = torch.empty(upd.tiles, dtype=torch.int32, device=device)
@@ -368,8 +474,9 @@ def general_train(
                 *(c.data_ptr() for c in row_constants),
                 u_a.data_ptr(), u_b.data_ptr(), dc.data_ptr(), cost_partials.data_ptr(),
                 prior_partials.data_ptr(), slabs.data_ptr(), counters.data_ptr(),
-                energies.data_ptr(), state.data_ptr(), n, m_k, j, j0, j_total, int(num_steps),
-                COST_KINDS.index(kind), DISCRETISATIONS.index(discretisation), upd.slices,
+                energies.data_ptr(), state.data_ptr(), p_split.data_ptr(), ut_split.data_ptr(),
+                n, m_k, fwd.k, j, j0, j_total, int(num_steps), COST_KINDS.index(kind),
+                DISCRETISATIONS.index(discretisation), upd.slices, fwd.grid,
                 host_params.data_ptr(), float(eta), float(patience), int(seed), int(zero_noise),
                 torch.cuda.current_stream().cuda_stream,
             )

@@ -10,7 +10,8 @@ checkout), so that two checkouts, e.g. a parent commit unpacked with
 turns on one card (parent, change, change, parent). The inputs are those of
 ``chip_smoke.py`` phases 6(e) and 9 (whose helpers it reuses from this
 checkout): B3 on the headline classification cell (smoothed Bernoulli,
-preconditioned, N=5000, M_k=512, J=1000, 200 steps with noise), B4 on phase
+preconditioned, N=5000, M_k=512, J=1000, 200 steps with noise) and on the
+same inputs with the Gaussian kind (the same products, a trivial epilogue), B4 on phase
 8(e)'s runs (the IPB system non-shared and the ONB system shared, M=512,
 J=1000, 20,000 steps with noise; call time only, which every checkout's B4
 gives the same way) and B5 on the IPB matrix prior with the Bernoulli closed
@@ -71,6 +72,13 @@ def main() -> int:
     split = smoke.profiled_device_split(lambda: gen.general_train(**b3), B3_NAMES, 1)
     out["b3"] = {"call_ms_per_step": call_ms / T,
                  "device_ms_per_step": {k: None if v is None else v / T for k, v in split.items()}}
+    # the same run with the Gaussian kind: the same products beside a trivial
+    # epilogue, so the forward's difference from the smoothed kind's is the
+    # GH16 quadrature
+    gauss3 = dict(b3, kind="gaussian", params=(1.0, 0.0, 0.0))
+    split = smoke.profiled_device_split(lambda: gen.general_train(**gauss3), B3_NAMES, 1)
+    out["b3_gaussian"] = {
+        "device_ms_per_step": {k: None if v is None else v / T for k, v in split.items()}}
 
     # B5 on the IPB matrix prior, Bernoulli, as phase 9's timed case
     xg, y, zg = smoke.headline_inputs(torch.float32)
