@@ -760,6 +760,8 @@ def synthetic_general(kind, n=N6, m_k=M6, j=J6, seed=0):
     prior draws as U0, and targets of f = sin(2x) on sorted x in [-3, 3]. The
     Poisson square link trains at a mean shift of 3 from small particles, so
     that F stays away from its pole at 0."""
+    from projected_langevin_sampling_torch.ops.cuda.general_train import JITTER
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
     f = np.sin(2 * np.sort(rng.uniform(-3, 3, n)))
@@ -771,7 +773,7 @@ def synthetic_general(kind, n=N6, m_k=M6, j=J6, seed=0):
     if kind == "gaussian":
         y, params = f + 0.1 * rng.normal(size=n), (0.1, 0.0, 0.0)
     elif kind in ("bernoulli_sigmoid", "bernoulli_probit"):
-        y = labels
+        y, params = labels, (JITTER, 0.0, 0.0)
     elif kind == "bernoulli_sigmoid_smoothed":
         y, aux = labels, rng.uniform(0.3, 1.2, n)
     elif kind == "poisson_square":
@@ -868,13 +870,14 @@ def headline_basis(pt, x, z):
 
 
 def phase_general(pt, gen):
-    from projected_langevin_sampling_torch.training import general_fused_cost_spec
+    from projected_langevin_sampling_torch.closed_forms import general_fused_form
+    from projected_langevin_sampling_torch.ops.cuda.cost_forms import COST_KINDS
     from projected_langevin_sampling_torch.utils.columns import ColumnShard
 
     b3 = ("B3", gen.general_train, gen.general_train_reference)
     res = {}
     # (a) zero noise: every cost kind under every discretisation
-    for kind in gen.COST_KINDS:
+    for kind in COST_KINDS:
         prob = synthetic_general(kind)
         for disc in gen.DISCRETISATIONS:
             hold_zero_noise(*b3, f"{kind}/{disc} N={N6} M_k={M6} J={J6} T={T6}", **prob,
@@ -915,11 +918,11 @@ def phase_general(pt, gen):
     x, labels, std, z = classification_inputs()
     basis = headline_basis(pt, x, z).replace(mean_constant=0.3)
     cost = pt.make_smoothed_bernoulli_cost(labels, std)
-    kind, p0, p1, p2, aux = general_fused_cost_spec(basis, cost)
+    kind, params, aux = general_fused_form(basis, cost)
     require(kind == "bernoulli_sigmoid_smoothed", f"headline cost kind {kind}")
     u0 = pt.PLS(basis, cost).initialise_particles(J, generator=0)
     headline = dict(p=basis.train_projection, u0=u0, y=cost.y_train,
-                    eigenvalues=basis.eigenvalues, kind=kind, params=(p0, p1, p2),
+                    eigenvalues=basis.eigenvalues, kind=kind, params=params,
                     mean_shift=basis.mean_constant, aux=aux, eta=STEP_SIZE,
                     patience=math.inf, num_steps=T6, discretisation="preconditioned")
     res["max_abs_err"], _ = hold_zero_noise(
@@ -1304,6 +1307,8 @@ B5_KERNELS = ("dc_kernel", "update_kernel")
 
 
 def phase_fused(pt, fused):
+    from projected_langevin_sampling_torch.closed_forms import dc_kind_for_cost
+
     x, y, z = headline_inputs(torch.float32)
     onb, ipb = headline_basis(pt, x, z), headline_ipb(pt, x, z)
     rng = np.random.default_rng(9)
@@ -1326,7 +1331,7 @@ def phase_fused(pt, fused):
             d, prior = basis.base_gram_induce_train.T, M * basis.inv_base_gram_induce
         u = basis.initialise_particles(J, generator=1)
         for kind, cost in costs.items():
-            got_kind, params = fused.dc_kind_for_cost(cost)
+            got_kind, params = dc_kind_for_cost(cost)
             require(got_kind == kind, f"dc kind {got_kind} for {kind}")
             # Poisson: F away from the 1/f pole, as phase 6 trains it: a mean
             # shift of 3 and particles 0.2 u. (Next to the pole, where P (u + 2)

@@ -7,7 +7,8 @@
 //
 //   F  = P U + m0                        (N, M) x (M, J)
 //   dc = d cost / d F, per element: Gaussian-identity, Bernoulli-sigmoid
-//        (jitter clip), Poisson-square, Student-T-identity
+//        (jitter clip), Poisson-square, Student-T-identity (cost_forms.cuh's
+//        forms, the cost dropped)
 //   U' = U - eta (D^T dc + prior(U)) + sqrt(2 eta) noise
 //
 // with prior(U) = prior * U for a diagonal prior (the orthonormal basis,
@@ -54,53 +55,27 @@
 // mode's code is unchanged.
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 
+#include "cost_forms.cuh"
 #include "tc_product.cuh"
 
 namespace {
 
+using namespace plst::costs;
 namespace tc = plst::tc;
 using tc::BK;
 using tc::BM;
 using tc::BN;
 using tc::THREADS;
 
-// the order of DC_KINDS in ops/cuda/fused_update.py
-enum DcKind { GAUSSIAN = 0, BERNOULLI_SIGMOID = 1, POISSON_SQUARE = 2, STUDENT_T = 3 };
-
-struct DcParams {
-  float p0, p1;  // observation noise; jitter; -; degrees of freedom and scale
-  float m0;      // prior mean constant: F = m0 + P U
-};
-
-// dc of one element, as the closed forms of fused_update.py:46-75 and the
-// port's cost classes.
-template <int KIND>
-__device__ __forceinline__ float dc_of(float f, float y, const DcParams& dp) {
-  if (KIND == GAUSSIAN) {
-    return (f - y) / dp.p0;
-  } else if (KIND == BERNOULLI_SIGMOID) {
-    // the link's clip with its dtype-aware floor: 1 - 1e-10 rounds to 1 in fp32
-    const float jit = fmaxf(dp.p0, FLT_EPSILON);
-    const float p = fminf(fmaxf(1.0f / (1.0f + expf(-f)), jit), 1.0f - jit);
-    return -y * (1.0f - p) + (1.0f - y) * p;
-  } else if (KIND == POISSON_SQUARE) {
-    return -2.0f * y / f + 2.0f * f;
-  } else {  // STUDENT_T
-    const float err = f - y;
-    return (dp.p0 + 1.0f) * err / (dp.p0 * (dp.p1 * dp.p1) + err * err);
-  }
-}
-
-// F = P U + m0 on one (N, J) tile, then dc; block (0, 0) also zeroes the
-// update's arrival counters.
+// F = P U + m0 on one (N, J) tile, then dc (p0 is the Bernoulli kind's
+// jitter); block (0, 0) also zeroes the update's arrival counters.
 template <int KIND>
 __global__ void __launch_bounds__(THREADS, tc::MIN_BLOCKS)
 dc_kernel(const float* __restrict__ p, const float* __restrict__ u, const float* __restrict__ y,
           float* __restrict__ dc, int* __restrict__ counters, int n_counters, int n, int m, int j,
-          DcParams dp) {
+          CostParams cp) {
   if (blockIdx.x == 0 && blockIdx.y == 0) {
     for (int i = threadIdx.x; i < n_counters; i += THREADS) counters[i] = 0;
   }
@@ -113,8 +88,10 @@ dc_kernel(const float* __restrict__ p, const float* __restrict__ u, const float*
   for (int e = threadIdx.x; e < BM * BN; e += THREADS) {  // a warp on 32 columns of a row
     const int r = row0 + e / BN, c = col0 + e % BN;
     if (r < n && c < j) {
-      dc[(size_t)r * j + c] = dc_of<KIND>(smem[(e / BN) * tc::TILE_STRIDE + e % BN] + dp.m0, y[r],
-                                          dp);
+      float cost, d;
+      cost_and_dc<KIND>(smem[(e / BN) * tc::TILE_STRIDE + e % BN] + cp.m0, y[r], 0.0f, true,
+                        cp.p0, cp, cost, d);
+      dc[(size_t)r * j + c] = d;
     }
   }
 }
@@ -174,11 +151,11 @@ cudaError_t allow_ring(Kernel kernel) {
 template <int KIND>
 cudaError_t launch_dc(dim3 grid, cudaStream_t stream, const float* p, const float* u,
                       const float* y, float* dc, int* counters, int n_counters, int n, int m,
-                      int j, const DcParams& dp) {
+                      int j, const CostParams& cp) {
   cudaError_t err = allow_ring(dc_kernel<KIND>);
   if (err != cudaSuccess) return err;
   dc_kernel<KIND><<<grid, THREADS, tc::SMEM_BYTES, stream>>>(p, u, y, dc, counters, n_counters, n,
-                                                             m, j, dp);
+                                                             m, j, cp);
   return cudaGetLastError();
 }
 
@@ -202,18 +179,20 @@ cudaError_t launch_update(dim3 grid, cudaStream_t stream, const float* d, const 
 // update tile (M, J) and slabs `slices` partial tiles per update tile when
 // slices > 1 (tc_product.cuh; ops/cuda/tc_product.py sizes them). partial:
 // u_out gets D^T dc (M, J) over these N rows and prior, noise, prior_diag and
-// eta are not used (slices then cut the depth N alone). Returns a CUDA error
-// code, 0 on success.
+// eta are not used (slices then cut the depth N alone). kind is an index of
+// cost_forms.cuh's CostKind; one this kernel has no instance of is refused.
+// Returns a CUDA error code, 0 on success.
 extern "C" int plst_fused_update(const void* p, const void* d, const void* y, const void* u,
                                  const void* prior, const void* noise, void* dc, void* u_out,
                                  void* slabs, void* counters, int n, int m, int j, int d_kmajor,
                                  int prior_diag, int partial, int kind, int slices, float p0,
                                  float p1, float m0, float eta, void* stream_ptr) {
-  if (n <= 0 || m <= 0 || j <= 0 || slices < 1 || kind < GAUSSIAN || kind > STUDENT_T) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (n <= 0 || m <= 0 || j <= 0 || slices < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const DcParams dp{p0, p1, m0};
+  CostParams cp{};
+  cp.p0 = p0;
+  cp.p1 = p1;
+  cp.m0 = m0;
   const float* pp = static_cast<const float*>(p);
   const float* up = static_cast<const float*>(u);
   const float* yp = static_cast<const float*>(y);
@@ -226,19 +205,21 @@ extern "C" int plst_fused_update(const void* p, const void* d, const void* y, co
   cudaError_t err;
   switch (kind) {
     case GAUSSIAN:
-      err = launch_dc<GAUSSIAN>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j, dp);
+      err = launch_dc<GAUSSIAN>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j, cp);
       break;
     case BERNOULLI_SIGMOID:
       err = launch_dc<BERNOULLI_SIGMOID>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m,
-                                         j, dp);
+                                         j, cp);
       break;
     case POISSON_SQUARE:
       err = launch_dc<POISSON_SQUARE>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j,
-                                      dp);
+                                      cp);
+      break;
+    case STUDENT_T:
+      err = launch_dc<STUDENT_T>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j, cp);
       break;
     default:
-      err = launch_dc<STUDENT_T>(grid_dc, stream, pp, up, yp, dcp, cnt, n_counters, n, m, j, dp);
-      break;
+      return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
   const float* dp_ = static_cast<const float*>(d);

@@ -35,10 +35,10 @@ from projected_langevin_sampling_torch.models.link_functions import (
     PLSLinkFunction,
     SigmoidLinkFunction,
 )
+from projected_langevin_sampling_torch.ops.cuda.cost_forms import softplus
 from projected_langevin_sampling_torch.ops.cuda.smoothed_bernoulli import (
     gauss_hermite_mean,
     smoothed_bernoulli,
-    softplus,
 )
 from projected_langevin_sampling_torch.utils.device import as_tensor
 

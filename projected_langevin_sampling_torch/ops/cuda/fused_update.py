@@ -4,7 +4,7 @@ and its plain version.
 Replaces ``projected_langevin_sampling_tpu/ops/pallas/fused_update.py``
 (``fused_langevin_update`` and ``dc_fn_for_cost``):
 
-    F  = P U + m0,   dc = d cost / d F (one of DC_KINDS, closed form)
+    F  = P U + m0,   dc = d cost / d F (one of :data:`KINDS`, ``cost_forms.py``)
     U' = U - eta (D^T dc + prior(U)) + sqrt(2 eta) noise
 
 with a diagonal prior (M,) multiplying U (the orthonormal basis: 1 / lambda,
@@ -31,8 +31,7 @@ split-K arrival counter per tile and a slab of partial tiles as scratch.
 :func:`fused_update` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`fused_update_reference` only for
 tensors that lie on the CPU. ``fused_update.launches`` counts launched
-updates. :func:`dc_kind_for_cost` decides from the cost's type alone which
-costs have a closed form here.
+updates. Which costs take which kind is ``closed_forms.py``'s rule.
 
 :func:`fused_drift` is the kernel's partial mode, for a step whose N rows
 are spread over the data ranks of a mesh (``parallel/sharded.py``): the same
@@ -49,30 +48,11 @@ import math
 
 import torch
 
-from projected_langevin_sampling_torch.models.costs import (
-    BernoulliCost,
-    GaussianCost,
-    PoissonCost,
-    StudentTCost,
-)
-from projected_langevin_sampling_torch.models.link_functions import (
-    IdentityLinkFunction,
-    SigmoidLinkFunction,
-    SquareLinkFunction,
-)
-from projected_langevin_sampling_torch.ops.cuda import build, tc_product
+from projected_langevin_sampling_torch.ops.cuda import build, cost_forms, tc_product
 
-# the order of the kernel's DcKind enum
-DC_KINDS = ("gaussian", "bernoulli_sigmoid", "poisson_square", "student_t")
-# fp32 operations per element of F for the dc closed form (a precise expf
-# counted as 8, a divide as 8), for the bound in PERF.md and chip_smoke.py
-OPS_PER_ELEMENT = {
-    "gaussian": 1 + 8,
-    "bernoulli_sigmoid": 8 + 2 + 8 + 2 + 6,
-    "poisson_square": 2 + 8 + 3,
-    "student_t": 3 + 8 + 4,
-}
-# per element of U: the prior term, eta, the noise and the update
+# the kinds the kernel instantiates: those it has a dc count for
+KINDS = tuple(kind for kind, facts in cost_forms.KINDS.items() if facts.dc_ops is not None)
+# fp32 operations per element of U: the prior term, eta, the noise and the update
 OPS_PER_UPDATE_ELEMENT = 6
 
 _SIGNATURES = {"plst_fused_update": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
@@ -82,45 +62,13 @@ _SIGNATURES = {"plst_fused_update": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
 def step_operations(kind: str, n: int, m: int, j: int, prior_is_diag: bool) -> int:
     """fp32 operations of one update, for the bound."""
     prior = 0 if prior_is_diag else 2 * m * m * j
-    return 4 * n * m * j + prior + OPS_PER_ELEMENT[kind] * n * j + OPS_PER_UPDATE_ELEMENT * m * j
+    return (4 * n * m * j + prior + cost_forms.KINDS[kind].dc_ops * n * j
+            + OPS_PER_UPDATE_ELEMENT * m * j)
 
 
-def dc_kind_for_cost(cost):
-    """``(kind, (p0, p1))`` of the cost's closed form in the kernel, or None
-    (``fused_update.py:206-237`` of the JAX package): Gaussian-identity
-    (observation noise), Bernoulli-sigmoid (the link's jitter),
-    Poisson-square, Student-T-identity (degrees of freedom, scale). Every
-    other cost and link, the smoothed Bernoulli, the probit link and the
-    mixture among them, has none. A rule on types, never a failed launch."""
-    link = cost.link_function
-    if isinstance(cost, GaussianCost) and isinstance(link, IdentityLinkFunction):
-        return "gaussian", (float(cost.observation_noise), 0.0)
-    if isinstance(cost, BernoulliCost) and isinstance(link, SigmoidLinkFunction):
-        return "bernoulli_sigmoid", (float(link.jitter), 0.0)
-    if isinstance(cost, PoissonCost) and isinstance(link, SquareLinkFunction):
-        return "poisson_square", (0.0, 0.0)
-    if isinstance(cost, StudentTCost) and isinstance(link, IdentityLinkFunction):
-        return "student_t", (float(cost.degrees_of_freedom), float(cost.scale))
-    return None
-
-
-def cost_derivative(kind: str, f: torch.Tensor, y: torch.Tensor, params) -> torch.Tensor:
-    """dc (N, J) of a kind, the kernel's closed forms in the input's dtype;
-    ``y`` is (N, 1). The Bernoulli clip floor is max(jitter, dtype eps), the
-    link's."""
-    p0, p1 = params
-    if kind == "gaussian":
-        return (f - y) / p0
-    if kind == "bernoulli_sigmoid":
-        jit = max(p0, torch.finfo(f.dtype).eps)
-        p = torch.clamp(torch.sigmoid(f), jit, 1.0 - jit)
-        return -y * (1.0 - p) + (1.0 - y) * p
-    if kind == "poisson_square":
-        return -2.0 * y / f + 2.0 * f
-    if kind == "student_t":
-        err = f - y
-        return (p0 + 1.0) * err / (p0 * (p1 * p1) + torch.square(err))
-    raise ValueError(f"Unknown dc kind {kind!r}")
+def _check_kind(kind: str, what: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"{what}: no instance of the cost kind {kind!r} (it has {KINDS})")
 
 
 def fused_drift_reference(
@@ -134,7 +82,9 @@ def fused_drift_reference(
     mean_shift: float = 0.0,
 ) -> torch.Tensor:
     """The partial mode's D^T dc (M, J) in plain PyTorch, in the input's dtype."""
-    return d.T @ cost_derivative(kind, p @ u + mean_shift, y[:, None], params)
+    p0, p1 = params
+    f = p @ u + mean_shift
+    return d.T @ cost_forms.cost_and_dc(kind, f, y[:, None], None, (p0, p1, 0.0))[1]
 
 
 def apply_drift(
@@ -203,7 +153,8 @@ def _launch(p, d, y, u, prior, noise, kind, eta, params, mean_shift):
             p32.data_ptr(), d32.data_ptr(), y32.data_ptr(), u32.data_ptr(), prior32.data_ptr(),
             noise32.data_ptr(), dc.data_ptr(), out.data_ptr(), slabs.data_ptr(),
             counters.data_ptr(), n, m, j, int(d_kmajor), int(prior_diag), int(partial),
-            DC_KINDS.index(kind), upd.slices, params[0], params[1], float(mean_shift), float(eta),
+            cost_forms.COST_KINDS.index(kind), upd.slices, params[0], params[1],
+            float(mean_shift), float(eta),
             torch.cuda.current_stream().cuda_stream,
         )
         build.check(err, "fused_update kernel")
@@ -228,8 +179,7 @@ def fused_update(
     is (M,) for a diagonal prior or (M, M); ``noise`` (M, J) is added as it
     is, times sqrt(2 eta). On CUDA tensors the kernel runs in fp32; on CPU
     tensors the plain version."""
-    if kind not in DC_KINDS:
-        raise ValueError(f"fused_update: unknown dc kind {kind!r}")
+    _check_kind(kind, "fused_update")
     params = tuple(float(v) for v in params)
     if u.device.type == "cpu":
         return fused_update_reference(p, d, y, u, prior, noise, kind, eta=eta, params=params,
@@ -252,8 +202,7 @@ def fused_drift(
     """D^T dc (M, J) in ``u``'s dtype, with dc at F = P U + m0 over the rows
     of ``p``, ``d`` and ``y`` (a data rank's): the kernel's partial mode on
     CUDA tensors (fp32), the plain version on CPU tensors."""
-    if kind not in DC_KINDS:
-        raise ValueError(f"fused_drift: unknown dc kind {kind!r}")
+    _check_kind(kind, "fused_drift")
     params = tuple(float(v) for v in params)
     if u.device.type == "cpu":
         return fused_drift_reference(p, d, y, u, kind, params=params, mean_shift=mean_shift)

@@ -4,7 +4,7 @@ plain version.
 Replaces ``projected_langevin_sampling_tpu/ops/pallas/general_train.py``
 (``general_train_fused``). On the orthonormal basis, for T steps:
 
-    F  = P U + m0,   dc = d cost / d F (one of COST_KINDS, closed form),
+    F  = P U + m0,   dc = d cost / d F (a kind of ``cost_forms.py``, closed form),
     G  = P^T dc
     euler:  U' = U - eta (G + U / lambda) + sqrt(2 eta) eps
     split:  U' = x - (1 - dec) x + nscale eps,  x = U - eta ds G
@@ -70,10 +70,9 @@ import ctypes
 import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from projected_langevin_sampling_torch.ops.cuda import build, tc_product
+from projected_langevin_sampling_torch.ops.cuda import build, cost_forms, tc_product
 from projected_langevin_sampling_torch.utils.columns import (
     ColumnShard,
     column_mean,
@@ -86,43 +85,12 @@ from projected_langevin_sampling_torch.utils.early_stopper import (
 )
 from projected_langevin_sampling_torch.utils.tracing import span
 
-# the order of the kernel's CostKind enum
-COST_KINDS = (
-    "gaussian",
-    "bernoulli_sigmoid",
-    "bernoulli_sigmoid_smoothed",
-    "bernoulli_probit",
-    "poisson_square",
-    "student_t",
-    "multimodal_identity",
-)
 DISCRETISATIONS = ("euler", "exponential", "preconditioned")
-_SIGMOID_JITTER = 1e-10
-# the physicists' 16-node Gauss-Hermite rule of the smoothed kind, scaled as
-# the kernel applies it: E_z[g(f + s z)] = sum_q w_q / sqrt(pi) g(f + sqrt(2) x_q s)
-GH16_NODES, GH16_WEIGHTS = np.polynomial.hermite.hermgauss(16)
-_GH16_SCALED_NODES = math.sqrt(2.0) * GH16_NODES
-_GH16_SCALED_WEIGHTS = GH16_WEIGHTS / math.sqrt(math.pi)
-
-# fp32 operations per element of F for the bound in PERF.md and chip_smoke.py,
-# besides the 4 M_k flops of the two products. A precise expf is counted as 8
-# instructions, log1pf and erff as 20, a precise divide as 8; an add,
-# multiply, compare or select as 1 and an FMA as 2. Estimates, not counts of
-# the compiled code.
-_EXP, _LOG, _DIV = 8, 20, 8
-_SIGMOID = _EXP + 1 + _DIV
-_SOFTPLUS = 3 + _EXP + _LOG
-OPS_PER_ELEMENT = {
-    "gaussian": 3 + _DIV + 4,
-    "bernoulli_sigmoid": _SIGMOID + 4 + 2 * _LOG + 6 + 1,
-    "bernoulli_sigmoid_smoothed": 2 + 16 * (2 + _SOFTPLUS + _SIGMOID + 4),
-    "bernoulli_probit": 2 + _LOG + 6 + _EXP + 3 + 2 * _LOG + 6 + 3 + _DIV + 2,
-    "poisson_square": 2 + _LOG + 4 + _DIV + 3,
-    "student_t": 1 + 2 + _DIV + _LOG + 3 + 3 + _DIV,
-    "multimodal_identity": 4 + _DIV + 2 * _LOG + _SOFTPLUS + _SIGMOID + 2 * _DIV + 8,
-}
-# per element of U: the update, the prior term and a quarter of a Philox call
-# with half a Box-Muller pair (as B1's 25 + 6)
+# the Bernoulli kinds' jitter, the one the kernel instantiates (csrc/general_train.cu
+# JITTER): the library default, the only one ``closed_forms.py`` gives B3
+JITTER = 1e-10
+# fp32 operations per element of U: the update, the prior term and a quarter
+# of a Philox call with half a Box-Muller pair (as B1's 25 + 6)
 OPS_PER_UPDATE_ELEMENT = 8 + 4 + 31
 
 _SIGNATURES = {
@@ -223,7 +191,8 @@ def forward_product(p_split: torch.Tensor, ut_split: torch.Tensor) -> torch.Tens
 def step_operations(kind: str, n: int, m_k: int, j: int) -> int:
     """fp32 operations of one training step (both products, the cost
     epilogue, the update), for the bound."""
-    return 4 * n * m_k * j + OPS_PER_ELEMENT[kind] * n * j + OPS_PER_UPDATE_ELEMENT * m_k * j
+    return (4 * n * m_k * j + cost_forms.KINDS[kind].ops * n * j
+            + OPS_PER_UPDATE_ELEMENT * m_k * j)
 
 
 def split_row_constants(eigenvalues: torch.Tensor, eta: float, discretisation: str):
@@ -259,55 +228,6 @@ def split_row_constants(eigenvalues: torch.Tensor, eta: float, discretisation: s
     else:
         raise ValueError(f"Unknown discretisation {discretisation!r}")
     return inv_lam, one_minus_dec, ds, nscale
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
-
-
-def cost_and_dc(kind: str, f: torch.Tensor, y: torch.Tensor, aux: torch.Tensor, params):
-    """Elementwise cost and dc (N, J) of a cost kind, the kernel's closed
-    forms (``_tile_cost_and_dc``) in the input's dtype; ``y`` and ``aux`` are
-    (N, 1). The jitter floor is max(1e-10, dtype eps)."""
-    p0, p1, p2 = params
-    jit = max(_SIGMOID_JITTER, torch.finfo(f.dtype).eps)
-    if kind == "gaussian":
-        err = f - y
-        return (0.5 / p0) * torch.square(err), err / p0
-    if kind == "bernoulli_sigmoid":
-        p = torch.clamp(torch.sigmoid(f), jit, 1.0 - jit)
-        return -(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p)), p - y
-    if kind == "bernoulli_sigmoid_smoothed":
-        cost, dc = -y * f, -y.expand_as(f)
-        for node, weight in zip(_GH16_SCALED_NODES.tolist(), _GH16_SCALED_WEIGHTS.tolist()):
-            zq = f + node * aux
-            cost = cost + weight * _softplus(zq)
-            dc = dc + weight * torch.sigmoid(zq)
-        return cost, dc
-    if kind == "bernoulli_probit":
-        cdf = 0.5 * (1.0 + torch.erf(f * (0.5**0.5)))
-        in_range = (cdf > jit) & (cdf < 1.0 - jit)
-        p = torch.clamp(cdf, jit, 1.0 - jit)
-        pdf = torch.exp(-0.5 * torch.square(f)) * (1.0 / math.sqrt(2.0 * math.pi))
-        cost = -(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p))
-        dc = torch.where(in_range, pdf * (p - y) / (p * (1.0 - p)), torch.zeros_like(f))
-        return cost, dc
-    if kind == "poisson_square":
-        return -2.0 * y * torch.log(torch.abs(f)) + torch.square(f), -2.0 * y / f + 2.0 * f
-    if kind == "student_t":
-        err = f - y
-        denom = p0 * (p1 * p1)
-        cost = 0.5 * (p0 + 1.0) * torch.log1p(torch.square(err) / denom)
-        return cost, (p0 + 1.0) * err / (denom + torch.square(err))
-    if kind == "multimodal_identity":
-        sigma2 = p0 * p0
-        err = y - f
-        b = math.log(p2) - math.log1p(-p2)
-        delta = -(p1 * err + 0.5 * p1 * p1) / sigma2
-        log_norm = 0.5 * math.log(2.0 * math.pi * sigma2)
-        cost = 0.5 * torch.square(err) / sigma2 + log_norm - math.log1p(-p2) - _softplus(b + delta)
-        return cost, -(err + torch.sigmoid(b + delta) * p1) / sigma2
-    raise ValueError(f"Unknown cost kind {kind!r}")
 
 
 def general_train_reference(
@@ -348,7 +268,8 @@ def general_train_reference(
     aux_col = torch.zeros_like(y_col) if aux is None else aux[:, None]
 
     def sweep(u):
-        cost, dc = cost_and_dc(kind, product(p, u) + mean_shift, y_col, aux_col, params)
+        f = product(p, u) + mean_shift
+        cost, dc = cost_forms.cost_and_dc(kind, f, y_col, aux_col, params)
         return torch.sum(cost, dim=0), dc
 
     def step(t, state):
@@ -405,7 +326,7 @@ def general_train(
     with the plain version. ``shard``: the columns of a J-column run these
     particles are (module note). On CPU tensors the plain loop runs."""
     with span("pls.general_train"):
-        if kind not in COST_KINDS:
+        if kind not in cost_forms.COST_KINDS:
             raise ValueError(f"general_train: unknown cost kind {kind!r}")
         if discretisation not in DISCRETISATIONS:
             raise ValueError(f"general_train: unknown discretisation {discretisation!r}")
@@ -421,6 +342,8 @@ def general_train(
         if noise is not None:
             raise ValueError("general_train: the kernel draws its own Philox noise; "
                              "injected noise is for CPU tensors")
+        if cost_forms.KINDS[kind].jitter and params[0] != JITTER:
+            raise ValueError(f"general_train: the kernel's jitter is {JITTER}, not {params[0]}")
         if p.ndim != 2 or u0.ndim != 2 or u0.shape[0] != p.shape[1]:
             raise ValueError(f"general_train: P {tuple(p.shape)} and U0 {tuple(u0.shape)}")
         n, m_k = p.shape
@@ -448,7 +371,8 @@ def general_train(
             aux32 = torch.zeros_like(y32) if aux is None else f32(aux)
             # the kernel's 4 + 2 x 16 scalars, read on the host by the C entry point
             host_params = torch.tensor(
-                [*params, float(mean_shift), *_GH16_SCALED_NODES, *_GH16_SCALED_WEIGHTS],
+                [*params, float(mean_shift), *cost_forms.GH16_SCALED_NODES,
+                 *cost_forms.GH16_SCALED_WEIGHTS],
                 dtype=torch.float32,
             )
             upd = tc_product.split_k(m_k, j, n)  # a prior partial and a counter per tile
@@ -475,7 +399,7 @@ def general_train(
                 u_a.data_ptr(), u_b.data_ptr(), dc.data_ptr(), cost_partials.data_ptr(),
                 prior_partials.data_ptr(), slabs.data_ptr(), counters.data_ptr(),
                 energies.data_ptr(), state.data_ptr(), p_split.data_ptr(), ut_split.data_ptr(),
-                n, m_k, fwd.k, j, j0, j_total, int(num_steps), COST_KINDS.index(kind),
+                n, m_k, fwd.k, j, j0, j_total, int(num_steps), cost_forms.COST_KINDS.index(kind),
                 DISCRETISATIONS.index(discretisation), upd.slices, fwd.grid,
                 host_params.data_ptr(), float(eta), float(patience), int(seed), int(zero_noise),
                 torch.cuda.current_stream().cuda_stream,

@@ -34,6 +34,7 @@ import math
 import torch
 
 from projected_langevin_sampling_torch.ops.cuda import build
+from projected_langevin_sampling_torch.ops.cuda.cost_forms import softplus
 from projected_langevin_sampling_torch.utils.early_stopper import count_replays
 
 _SIGNATURES = {"plst_smoothed_bernoulli": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
@@ -44,12 +45,6 @@ _SIGNATURES = {"plst_smoothed_bernoulli": [ctypes.c_void_p] * 8 + [ctypes.c_int]
 ROWS_PER_BLOCK = 16
 _THREADS = 256
 _SHARED_BYTES = 48 * 1024
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as ``logaddexp(x, 0)`` = max(x, 0) + log1p(e^-|x|), the
-    JAX form (torch's own softplus switches to x above a threshold)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def gauss_hermite_mean(f: torch.Tensor, smoothing_std: torch.Tensor, nodes: torch.Tensor,

@@ -36,11 +36,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from projected_langevin_sampling_torch.closed_forms import dc_kind_for_cost
 from projected_langevin_sampling_torch.models.basis.inducing_point import InducingPointBasis
 from projected_langevin_sampling_torch.models.basis.orthonormal import OrthonormalBasis
 from projected_langevin_sampling_torch.ops.cuda.fused_update import (
     apply_drift,
-    dc_kind_for_cost,
     fused_drift,
     fused_update,
 )

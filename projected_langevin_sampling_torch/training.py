@@ -20,7 +20,7 @@ Tiers (all compute the same posterior):
                     (``ops/cuda/spectral_train.py``); ``"spectral_fused"``
                     names the same entry point;
   "general_fused"   ONB + a cost with a closed form in the general kernel
-                    (:func:`general_fused_cost_spec`): on CUDA tensors the
+                    (``closed_forms.py``): on CUDA tensors the
                     whole-run kernel B3 (``ops/cuda/general_train.py``), every
                     discretisation.
 
@@ -45,7 +45,7 @@ never downgraded for size.
 :func:`langevin_steps` is the throughput path: steps with no energy and no
 stopping. Its Euler general body is one launch of the fused-update kernel B5
 (``ops/cuda/fused_update.py``) per step on CUDA tensors for a cost with a
-closed form there (:func:`dc_kind_for_cost`).
+closed form there (``closed_forms.dc_kind_for_cost``).
 """
 
 from __future__ import annotations
@@ -59,25 +59,12 @@ import torch
 
 from projected_langevin_sampling_torch.models.basis.inducing_point import InducingPointBasis
 from projected_langevin_sampling_torch.models.basis.orthonormal import OrthonormalBasis
-from projected_langevin_sampling_torch.models.costs import (
-    BernoulliCost,
-    GaussianCost,
-    MultiModalCost,
-    PoissonCost,
-    SmoothedBernoulliCost,
-    StudentTCost,
-)
-from projected_langevin_sampling_torch.models.link_functions import (
-    IdentityLinkFunction,
-    ProbitLinkFunction,
-    SigmoidLinkFunction,
-    SquareLinkFunction,
-)
+from projected_langevin_sampling_torch.closed_forms import dc_kind_for_cost, general_fused_form
+from projected_langevin_sampling_torch.models.costs import GaussianCost
+from projected_langevin_sampling_torch.models.link_functions import IdentityLinkFunction
 from projected_langevin_sampling_torch.models.pls import PLS
-from projected_langevin_sampling_torch.ops.cuda.fused_update import dc_kind_for_cost, fused_update
+from projected_langevin_sampling_torch.ops.cuda.fused_update import fused_update
 from projected_langevin_sampling_torch.ops.cuda.general_train import (
-    GH16_NODES,
-    GH16_WEIGHTS,
     general_train,
     split_row_constants,
 )
@@ -121,20 +108,6 @@ NON_EULER_TIERS = {
 DISCRETISATIONS = ("euler", "exponential", "preconditioned")
 
 
-def _is_gh16_rule(cost) -> bool:
-    """True when the cost's (gh_nodes, gh_weights) is numerically the
-    physicists' hermgauss(16) rule that the general kernel applies (rtol
-    covers an fp32 cast; atol 0 so the 2.6e-10 weights compare relatively).
-    Always a numeric check: a torch tensor is never abstract."""
-    nodes = cost.gh_nodes.detach().cpu().numpy()
-    weights = cost.gh_weights.detach().cpu().numpy()
-    return bool(
-        nodes.shape == GH16_NODES.shape
-        and np.allclose(nodes, GH16_NODES, rtol=1e-5, atol=0)
-        and np.allclose(weights, GH16_WEIGHTS, rtol=1e-5, atol=0)
-    )
-
-
 def _precond_spectral_coeffs(step_size: float, sigma: torch.Tensor, b_rot: torch.Tensor):
     """Coefficients of the preconditioned spectral recurrence
     W' = decay W + shift + noise_scale eps (see :func:`_spectral_system`)."""
@@ -143,48 +116,6 @@ def _precond_spectral_coeffs(step_size: float, sigma: torch.Tensor, b_rot: torch
     shift = exp_decay * step_size * b_rot
     noise_scale = math.sqrt(-math.expm1(-2.0 * step_size))
     return decay, shift, noise_scale
-
-
-def general_fused_cost_spec(basis, cost):
-    """``(cost_kind, p0, p1, p2, aux)`` for the general kernel, or None when
-    the (basis, cost, link) combination has no closed form there. ``aux`` is
-    the per-row residual smoothing std or None."""
-    if not isinstance(basis, OrthonormalBasis):
-        return None
-    link = cost.link_function
-    if isinstance(cost, GaussianCost) and isinstance(link, IdentityLinkFunction):
-        return ("gaussian", float(cost.observation_noise), 0.0, 0.0, None)
-    if isinstance(cost, BernoulliCost) and isinstance(link, SigmoidLinkFunction) and (
-        link.jitter == 1e-10  # the kernel applies the library default
-    ):
-        return ("bernoulli_sigmoid", 0.0, 0.0, 0.0, None)
-    if (
-        isinstance(cost, SmoothedBernoulliCost)
-        and isinstance(link, SigmoidLinkFunction)
-        # the kernel applies hermgauss(16); any other rule stays on "off", or
-        # the two tiers would train different costs
-        and _is_gh16_rule(cost)
-    ):
-        return ("bernoulli_sigmoid_smoothed", 0.0, 0.0, 0.0, cost.smoothing_std)
-    if isinstance(cost, BernoulliCost) and isinstance(link, ProbitLinkFunction) and (
-        link.jitter == 1e-10
-    ):
-        return ("bernoulli_probit", 0.0, 0.0, 0.0, None)
-    if isinstance(cost, PoissonCost) and isinstance(link, SquareLinkFunction):
-        return ("poisson_square", 0.0, 0.0, 0.0, None)
-    if isinstance(cost, StudentTCost) and isinstance(link, IdentityLinkFunction):
-        return ("student_t", float(cost.degrees_of_freedom), float(cost.scale), 0.0, None)
-    if isinstance(cost, MultiModalCost) and isinstance(link, IdentityLinkFunction):
-        # the closed-form responsibility-weighted gradient (the cost itself
-        # trains by autograd, as in the reference)
-        return (
-            "multimodal_identity",
-            float(cost.observation_noise),
-            float(cost.shift),
-            float(cost.bernoulli_noise),
-            None,
-        )
-    return None
 
 
 def resolve_fast_path(basis, cost, fast_path: str) -> str:
@@ -200,7 +131,7 @@ def resolve_fast_path(basis, cost, fast_path: str) -> str:
             return "quadratic"
         return "off"
     if fast_path == "general_fused":
-        return "off" if general_fused_cost_spec(basis, cost) is None else "general_fused"
+        return "off" if general_fused_form(basis, cost) is None else "general_fused"
     if fast_path in ("spectral", "spectral_fused"):
         if not spectral_fast_path_available(basis, cost):
             raise ValueError(
@@ -518,7 +449,7 @@ def _train_pls_loop(
         )
         return TrainResult(q_out @ w, energies, recorded, steps_run)
     if tier == "general_fused":
-        kind, p0, p1, p2, aux = general_fused_cost_spec(basis, cost)
+        kind, params, aux = general_fused_form(basis, cost)
         return TrainResult(*general_train(
             basis.train_projection,
             particles,
@@ -528,7 +459,7 @@ def _train_pls_loop(
             eta=eta,
             patience=patience,
             num_steps=number_of_epochs,
-            params=(p0, p1, p2),
+            params=params,
             mean_shift=basis.mean_constant,
             aux=aux,
             discretisation=discretisation,
@@ -733,7 +664,7 @@ def langevin_steps(
     general_fused (B3) and quadratic_fused (B4) run their whole-run kernels
     with infinite patience; quadratic and the split schemes are loops; the
     Euler general body is one fused update (B5) per step for a cost with a
-    closed form there (:func:`dc_kind_for_cost`), else the basis's own update.
+    closed form there (``closed_forms.dc_kind_for_cost``), else the basis's own update.
     ``noise`` (n_steps, M, J) injects the normals z as in
     :func:`_train_pls_loop`."""
     _require_known_basis(basis)

@@ -49,7 +49,7 @@ def main() -> int:
     from projected_langevin_sampling_torch.ops.cuda import fused_update as fused
     from projected_langevin_sampling_torch.ops.cuda import general_train as gen
     from projected_langevin_sampling_torch.ops.cuda import quadratic_train as quad
-    from projected_langevin_sampling_torch.training import general_fused_cost_spec
+    from projected_langevin_sampling_torch.closed_forms import dc_kind_for_cost, general_fused_form
 
     # chip_smoke's helpers, from this checkout (the package is already bound)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -62,10 +62,10 @@ def main() -> int:
     x, labels, std, z = smoke.classification_inputs()
     basis = smoke.headline_basis(pt, x, z).replace(mean_constant=0.3)
     cost = pt.make_smoothed_bernoulli_cost(labels, std)
-    kind, p0, p1, p2, aux = general_fused_cost_spec(basis, cost)
+    kind, params, aux = general_fused_form(basis, cost)
     u0 = pt.PLS(basis, cost).initialise_particles(smoke.J, generator=0)
     b3 = dict(p=basis.train_projection, u0=u0, y=cost.y_train, eigenvalues=basis.eigenvalues,
-              kind=kind, params=(p0, p1, p2), mean_shift=basis.mean_constant, aux=aux,
+              kind=kind, params=params, mean_shift=basis.mean_constant, aux=aux,
               eta=smoke.STEP_SIZE, patience=math.inf, num_steps=T,
               discretisation="preconditioned", seed=1)
     call_ms = smoke.cuda_ms(lambda: gen.general_train(**b3), reps=3)
@@ -84,13 +84,13 @@ def main() -> int:
     xg, y, zg = smoke.headline_inputs(torch.float32)
     ipb = smoke.headline_ipb(pt, xg, zg)
     bern = pt.BernoulliCost(y_train=(y > 0).float())
-    b5_kind, params = fused.dc_kind_for_cost(bern)
+    b5_kind, b5_params = dc_kind_for_cost(bern)
     u = ipb.initialise_particles(smoke.J, generator=1)
     noise = torch.randn((smoke.M, smoke.J), generator=torch.Generator(device="cuda").manual_seed(4),
                         device="cuda")
     b5_args = (ipb.train_projection, ipb.base_gram_induce_train.T, bern.y_train, u,
                smoke.M * ipb.inv_base_gram_induce, noise, b5_kind)
-    b5_kw = dict(eta=smoke.STEP_SIZE, params=params, mean_shift=0.3)
+    b5_kw = dict(eta=smoke.STEP_SIZE, params=b5_params, mean_shift=0.3)
     call_ms = smoke.cuda_ms(lambda: fused.fused_update(*b5_args, **b5_kw), reps=20, warmup=2)
     split = smoke.profiled_device_split(lambda: fused.fused_update(*b5_args, **b5_kw), B5_NAMES,
                                         10)

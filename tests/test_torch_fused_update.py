@@ -7,15 +7,20 @@
    (fp32 sums in another order; the Poisson derivative's 1/f pole amplifies
    them, so its particles start at u + 2, the JAX test's shift).
 2. The same in fp64 against the JAX package's unfused update: rtol 1e-10.
-3. The dispatch: ``dc_kind_for_cost`` has a closed form exactly where
-   ``dc_fn_for_cost`` has one (the mixture, the smoothed Bernoulli and the
-   probit link have none)."""
+3. The dispatch: ``closed_forms.dc_kind_for_cost`` has a closed form exactly
+   where ``dc_fn_for_cost`` has one (the mixture, the smoothed Bernoulli and
+   the probit link have none), and the wrapper refuses the kinds it has no
+   instance of.
+4. The shared Bernoulli derivative p - y (``ops/cuda/cost_forms.py``) is bit
+   for bit B5's earlier -y (1 - p) + (1 - y) p on labels in {0, 1}."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from projected_langevin_sampling_torch.closed_forms import dc_kind_for_cost
+from projected_langevin_sampling_torch.ops.cuda import cost_forms
 from projected_langevin_sampling_torch.ops.cuda import fused_update as tfused
 from projected_langevin_sampling_tpu.models import costs as jcosts
 from projected_langevin_sampling_tpu.models.link_functions import SigmoidLinkFunction
@@ -29,7 +34,7 @@ COSTS = ["gaussian", "bernoulli", "poisson", "student_t"]
 
 
 def _port_update(which, tbasis, tcost, u, noise):
-    kind, params = tfused.dc_kind_for_cost(tcost)
+    kind, params = dc_kind_for_cost(tcost)
     if which == "onb":
         d, prior = tbasis.train_projection, 1.0 / tbasis.eigenvalues
     else:
@@ -93,21 +98,39 @@ def test_dc_dispatch_matches_jax():
     named["bernoulli_jitter"] = jcosts.BernoulliCost(
         y_train=named["bernoulli"].y_train, link_function=SigmoidLinkFunction(jitter=1e-6))
     for name, jcost in named.items():
-        spec = tfused.dc_kind_for_cost(carried_cost(jcost))
+        spec = dc_kind_for_cost(carried_cost(jcost))
         assert (spec is None) == (dc_fn_for_cost(jcost) is None), name
     for name in ("multimodal", "smoothed", "bernoulli_probit"):
-        assert tfused.dc_kind_for_cost(carried_cost(named[name])) is None, name
-    assert tfused.dc_kind_for_cost(carried_cost(named["student_t"])) == ("student_t", (4.0, 0.3))
-    assert tfused.dc_kind_for_cost(carried_cost(named["bernoulli_jitter"])) == (
+        assert dc_kind_for_cost(carried_cost(named[name])) is None, name
+    assert dc_kind_for_cost(carried_cost(named["student_t"])) == ("student_t", (4.0, 0.3))
+    assert dc_kind_for_cost(carried_cost(named["bernoulli_jitter"])) == (
         "bernoulli_sigmoid", (1e-6, 0.0))
 
 
-def test_wrapper_refuses_what_it_cannot_launch():
+@pytest.mark.parametrize("kind", [
+    "hinge", "bernoulli_probit", "multimodal_identity", "bernoulli_sigmoid_smoothed"])
+def test_wrapper_refuses_what_it_cannot_launch(kind):
     p = torch.zeros((5, 3), device="meta")
     u = torch.zeros((3, 2), device="meta")
     y = torch.zeros(5, device="meta")
     with pytest.raises(ValueError, match="particles on meta"):
         tfused.fused_update(p, p, y, u, y[:3], u, "gaussian", eta=0.1, params=(1.0, 0.0))
-    with pytest.raises(ValueError, match="unknown dc kind"):
-        tfused.fused_update(p, p, y, u, y[:3], u, "hinge", eta=0.1)
+    with pytest.raises(ValueError, match=f"fused_update: no instance of the cost kind '{kind}'"):
+        tfused.fused_update(p, p, y, u, y[:3], u, kind, eta=0.1)
+    with pytest.raises(ValueError, match=f"fused_drift: no instance of the cost kind '{kind}'"):
+        tfused.fused_drift(p, p, y, u, kind)
     assert tfused.step_operations("gaussian", 5000, 512, 1000, prior_is_diag=False) > 1.07e10
+
+
+@pytest.mark.parametrize("dtype, bits", [(torch.float32, torch.int32), (torch.float64, torch.int64)])
+@pytest.mark.parametrize("jitter", [1e-10, 1e-6])
+def test_shared_bernoulli_dc_is_the_earlier_form_on_binary_labels(dtype, bits, jitter):
+    f = torch.linspace(-40.0, 40.0, 8001, dtype=dtype)[:, None]
+    jit = max(jitter, torch.finfo(dtype).eps)
+    p = torch.clamp(torch.sigmoid(f), jit, 1.0 - jit)
+    assert bool((p == jit).any() and (p == 1.0 - jit).any())  # both ends clip
+    for label in (0.0, 1.0):
+        y = torch.full_like(f, label)
+        earlier = -y * (1.0 - p) + (1.0 - y) * p
+        _, dc = cost_forms.cost_and_dc("bernoulli_sigmoid", f, y, None, (jitter, 0.0, 0.0))
+        assert torch.equal(dc.view(bits), earlier.view(bits)), label

@@ -17,6 +17,7 @@ import torch
 
 import projected_langevin_sampling_torch as pt
 import projected_langevin_sampling_tpu as pj
+from projected_langevin_sampling_torch import closed_forms
 from projected_langevin_sampling_torch import training as ttrain
 from projected_langevin_sampling_tpu.models import costs as jcosts
 from projected_langevin_sampling_tpu.models.link_functions import SigmoidLinkFunction
@@ -115,7 +116,7 @@ def test_preconditioned_spectral_tier_matches_jax(step_size, patience):
 @pytest.mark.parametrize("name", sorted(ELIGIBLE))
 def test_general_fused_resolution_matches_jax(name):
     jbasis, jcost, tbasis, tcost, _ = onb_model(name)
-    spec = ttrain.general_fused_cost_spec(tbasis, tcost)
+    spec = closed_forms.general_fused_cost_spec(tbasis, tcost)
     j_spec = general_fused_cost_spec(jbasis, jcost)
     assert spec[0] == j_spec[0] == ELIGIBLE[name]
     np.testing.assert_allclose(spec[1:4], [float(v) for v in j_spec[1:4]], rtol=1e-15)
@@ -136,7 +137,7 @@ def test_ineligible_costs_resolve_to_off_and_bad_pairs_raise():
     for jcost in (mixture, custom_rule, jitter):
         tcost = carried_cost(jcost)
         assert general_fused_cost_spec(jbasis, jcost) is None
-        assert ttrain.general_fused_cost_spec(tbasis, tcost) is None
+        assert closed_forms.general_fused_cost_spec(tbasis, tcost) is None
         for discretisation in DISCRETISATIONS:
             assert ttrain.resolve_tier(tbasis, tcost, "general_fused", discretisation) == "off"
     gaussian = carried_cost(jax_cost("gaussian", x))

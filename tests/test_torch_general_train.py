@@ -20,7 +20,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from projected_langevin_sampling_torch import training as ttrain
+from projected_langevin_sampling_torch import closed_forms
 from projected_langevin_sampling_torch.ops.cuda import general_train as tgen
 from projected_langevin_sampling_tpu.ops.pallas.general_train import general_train_fused
 from projected_langevin_sampling_tpu.training import (
@@ -43,8 +43,8 @@ STEP_SIZE = 1e-3
 
 
 def _spec_args(tbasis, tcost):
-    kind, p0, p1, p2, aux = ttrain.general_fused_cost_spec(tbasis, tcost)
-    return kind, dict(params=(p0, p1, p2), mean_shift=tbasis.mean_constant, aux=aux)
+    kind, params, aux = closed_forms.general_fused_form(tbasis, tcost)
+    return kind, dict(params=params, mean_shift=tbasis.mean_constant, aux=aux)
 
 
 @pytest.mark.parametrize("name, discretisation", [

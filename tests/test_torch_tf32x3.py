@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from projected_langevin_sampling_torch.ops.cuda import cost_forms
 from projected_langevin_sampling_torch.ops.cuda import general_train as tgen
 from projected_langevin_sampling_torch.ops.cuda import tc_product as tc
 
@@ -127,7 +128,7 @@ def _run(kind, discretisation, product):
 
 
 @pytest.mark.parametrize("kind, discretisation", [
-    (kind, disc) for kind in tgen.COST_KINDS for disc in tgen.DISCRETISATIONS])
+    (kind, disc) for kind in cost_forms.COST_KINDS for disc in tgen.DISCRETISATIONS])
 def test_b3_plain_version_with_3xtf32_holds_the_chip_tolerances(kind, discretisation):
     u, e, rec, steps = _run(kind, discretisation, torch.matmul)
     u3, e3, rec3, steps3 = _run(kind, discretisation, tc.tf32x3_matmul)
