@@ -30,6 +30,23 @@ def same_input_gram(kernel, x: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class Projection:
+    """The kernel side of q(f) at N inputs (:meth:`SVGP.project`): A = K_xz
+    L^{-T} (N, M) and the prior variance k(x, x) (N,). Each row is a function
+    of its own input alone, so a projection indexes like its inputs: its rows
+    are the projection of those inputs' rows."""
+
+    a: torch.Tensor
+    k_diag: torch.Tensor
+
+    def __len__(self) -> int:
+        return self.a.shape[0]
+
+    def __getitem__(self, index) -> Projection:
+        return Projection(self.a[index], self.k_diag[index])
+
+
+@dataclasses.dataclass(frozen=True)
 class SVGP:
     mean_constant: torch.Tensor  # scalar
     kernel: object  # ARDKernel or PLSKernel
@@ -65,17 +82,22 @@ class SVGP:
         k_zz = same_input_gram(self.kernel, self.x_induce)
         return psd_safe_cholesky(k_zz, self._effective_jitter(k_zz.dtype))
 
-    def latent(self, x: torch.Tensor) -> MultivariateNormal:
-        """q(f(x)) marginals: mean = m0 + A v, var = k_xx - rowsum(A^2) +
-        rowsum((A C)^2), with A = K_xz L^{-T}."""
+    def project(self, x: torch.Tensor) -> Projection:
+        """The kernel side of q(f(x)), which no variational parameter
+        reaches: A = K_xz L^{-T} and k(x, x)."""
         x = _as_2d(x)
         chol = self._chol_kzz()
         k_xz = self.kernel(x, self.x_induce)  # (N, M)
         a = torch.linalg.solve_triangular(chol, k_xz.T, upper=False).T  # (N, M)
-        mean = self.mean_constant + a @ self.variational_mean
-        k_diag = self.kernel(x, x, diag=True)
-        ac = a @ self._chol_s
-        var = k_diag - torch.sum(torch.square(a), dim=1) + torch.sum(torch.square(ac), dim=1)
+        return Projection(a, self.kernel(x, x, diag=True))
+
+    def latent(self, x: torch.Tensor | Projection) -> MultivariateNormal:
+        """q(f(x)) marginals: mean = m0 + A v, var = k_xx - rowsum(A^2) +
+        rowsum((A C)^2), from the inputs or their :class:`Projection`."""
+        p = x if isinstance(x, Projection) else self.project(x)
+        mean = self.mean_constant + p.a @ self.variational_mean
+        ac = p.a @ self._chol_s
+        var = p.k_diag - torch.sum(torch.square(p.a), dim=1) + torch.sum(torch.square(ac), dim=1)
         return MultivariateNormal(mean=mean, variance=torch.clamp_min(var, 0.0))
 
     def kl_divergence(self) -> torch.Tensor:
@@ -86,12 +108,14 @@ class SVGP:
         logdet = 2.0 * torch.sum(torch.log(torch.abs(torch.diagonal(c))))
         return 0.5 * (trace + m @ m - m.shape[0] - logdet)
 
-    def elbo(self, x_batch: torch.Tensor, y_batch: torch.Tensor, num_data: int) -> torch.Tensor:
+    def elbo(self, x_batch: torch.Tensor | Projection, y_batch: torch.Tensor,
+             num_data: int) -> torch.Tensor:
         """Minibatch ELBO (gpytorch's VariationalELBO times N):
-        (N / B) sum_batch E_q[log p(y|f)] - KL."""
+        (N / B) sum_batch E_q[log p(y|f)] - KL, on the batch's inputs or
+        their :class:`Projection`."""
         q_f = self.latent(x_batch)
         ell = self.likelihood.expected_log_prob(y_batch, q_f.mean, q_f.variance)
-        return (num_data / x_batch.shape[0]) * torch.sum(ell) - self.kl_divergence()
+        return (num_data / len(x_batch)) * torch.sum(ell) - self.kl_divergence()
 
     def predict_y(self, x: torch.Tensor):
         """The likelihood's marginal of q(f) (the reference's

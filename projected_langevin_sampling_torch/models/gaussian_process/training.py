@@ -175,6 +175,10 @@ def _rebuild_kernel(template, log_lengthscales, log_outputscale):
     return ard
 
 
+# the parameters that K_zz, its factor and each row's projection depend on
+_KERNEL_SIDE = frozenset({"log_lengthscales", "log_outputscale", "x_induce"})
+
+
 def _svgp_params(svgp: SVGP, learn_inducing_locations: bool) -> dict:
     ard = _base_ard(svgp.kernel)
     params = {
@@ -234,6 +238,14 @@ def fit_svgp(
     outputscale, ``learn_observation_noise=False`` the likelihood noise.
     Returns ``(None, None)`` if an epoch leaves a parameter non-finite.
 
+    A fit that learns neither the kernel nor the inducing inputs evaluates
+    the kernel side of the ELBO once, before its epochs (the span
+    ``pls.fit_svgp.project``): K_zz's factor, and each training row's
+    A = K_xz L^{-T} and k(x, x) (a ``Projection``), whose rows each batch
+    gathers. A row is the value a batch of its own would compute, up to the
+    rounding of a solve over more rows. ``fit_svgp.fits`` counts the fits
+    started, ``fit_svgp.kernel_once`` those that took this path.
+
     On the card the epoch's permutation is drawn inside the graph from
     ``generator``, registered with it, so a graphed fit draws the very
     permutations of the eager one."""
@@ -259,10 +271,19 @@ def fit_svgp(
         names = tuple(params)
         trainable = tuple(name for name in names if name not in frozen)
 
+        _counted.fits += 1
+        rows = x
+        if _KERNEL_SIDE.isdisjoint(trainable):
+            # nothing the fit trains reaches K_zz, its factor or a row's
+            # projection: evaluate them once, and gather a batch's rows
+            _counted.kernel_once += 1
+            with span("pls.fit_svgp.project"), torch.no_grad():
+                rows = _svgp_from_params(params, svgp).project(x)
+
         def sgd(p: dict, index: torch.Tensor) -> dict:
             """One optax.sgd step on a batch: p - lr g."""
             p = {k: v.detach().requires_grad_(k in trainable) for k, v in p.items()}
-            loss = -_svgp_from_params(p, svgp).elbo(x[index], y[index], n) / n
+            loss = -_svgp_from_params(p, svgp).elbo(rows[index], y[index], n) / n
             grads = torch.autograd.grad(loss, [p[k] for k in trainable], allow_unused=True)
             for k, g in zip(trainable, grads):
                 if g is not None:
@@ -281,7 +302,7 @@ def fit_svgp(
                 p = sgd(p, order[num_batches * batch_size :])
             with torch.no_grad():
                 p = _detached(p)
-                loss = -_svgp_from_params(p, svgp).elbo(x, y, n) / n
+                loss = -_svgp_from_params(p, svgp).elbo(rows, y, n) / n
             return tuple(p[k] for k in names), loss
 
         def non_finite(state):
@@ -300,3 +321,11 @@ def fit_svgp(
         with span("pls.fit.readback"):
             fitted = {k: v.detach() for k, v in zip(names, run.state)}
             return _svgp_from_params(fitted, svgp), _recorded_losses(run)
+
+
+# counted on the host once a call: the fits started, and those that evaluated
+# their kernel side once; on the function itself, whatever later rebinds
+# the module's name
+fit_svgp.fits = 0
+fit_svgp.kernel_once = 0
+_counted = fit_svgp

@@ -3,6 +3,8 @@
 rtol 1e-10; ``fit_exact_gp`` and ``fit_svgp`` against the JAX fits over 20
 epochs at rtol 1e-8, with the SVGP's per-epoch permutations taken from the
 JAX key schedule and injected; both stoppers and the ``(None, None)`` case.
+The SVGP's split into its kernel side (``project``) and the marginals, and
+the count of fits that evaluate their kernel side once, are the port's own.
 
 Values that can sit near 0 are compared with an absolute floor of 1e-12
 times the largest magnitude of the JAX value (normwise), as the other
@@ -114,6 +116,25 @@ def test_svgp_matches_jax(kind, pls):
 
 
 @pytest.mark.parametrize("pls", [False, True], ids=["ard", "pls"])
+def test_latent_is_the_marginals_of_the_projection(pls):
+    """``latent(x)`` is the mean-and-variance step on ``project(x)``, bit for
+    bit; the rows of a projection of all the data, gathered by an index, are
+    the projection of those rows (rtol 1e-13: a solve over more rows may round
+    a last bit apart)."""
+    jsvgp, x, _ = jax_svgp("gaussian", pls=pls, d=2)
+    tsvgp = convert.svgp_from_numpy(svgp_params(jsvgp), device=CPU)
+    tx = torch.as_tensor(x)
+    latent, split = tsvgp.latent(tx), tsvgp.latent(tsvgp.project(tx))
+    for got, want in ((split.mean, latent.mean), (split.variance, latent.variance)):
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    index = torch.as_tensor(np.random.default_rng(4).permutation(len(x))[:11])
+    rows, own = tsvgp.project(tx)[index], tsvgp.project(tx[index])
+    assert len(rows) == len(own) == 11
+    np.testing.assert_allclose(to_np(rows.a), to_np(own.a), rtol=1e-13, atol=0)
+    np.testing.assert_allclose(to_np(rows.k_diag), to_np(own.k_diag), rtol=1e-13, atol=0)
+
+
+@pytest.mark.parametrize("pls", [False, True], ids=["ard", "pls"])
 def test_init_and_titsias_optimal_svgp_match_jax(pls):
     jsvgp, x, y = jax_svgp("gaussian", pls=pls, fitted=False)
     tsvgp = convert.svgp_from_numpy(svgp_params(jsvgp), device=CPU)
@@ -213,6 +234,35 @@ def test_fit_svgp_matches_jax(case):
     moved = not torch.equal(t_ard.lengthscales, torch.as_tensor(np.asarray(
         (jsvgp.kernel.base_kernel if case == "frozen_pls" else jsvgp.kernel).lengthscales)))
     assert moved == (case != "frozen_pls")
+
+
+@pytest.mark.parametrize("case", ["free", "frozen", "inducing"])
+def test_fit_svgp_counts_the_fits_that_evaluate_their_kernel_once(case):
+    """``fit_svgp.fits`` counts every fit; ``fit_svgp.kernel_once`` only one
+    that learns neither the kernel nor the inducing inputs."""
+    jsvgp, x, y = jax_svgp("gaussian", pls=True, fitted=False)
+    tsvgp = convert.svgp_from_numpy(svgp_params(jsvgp), device=CPU)
+    kw = {"free": {}, "frozen": dict(learn_kernel_parameters=False),
+          "inducing": dict(learn_kernel_parameters=False, learn_inducing_locations=True)}[case]
+    before = ttrain.fit_svgp.fits, ttrain.fit_svgp.kernel_once
+    fit, losses = ttrain.fit_svgp(tsvgp, torch.as_tensor(x), torch.as_tensor(y), 2,
+                                  batch_size=8, learning_rate=0.1, generator=1, **kw)
+    assert fit is not None and len(losses) == 2
+    assert ttrain.fit_svgp.fits == before[0] + 1
+    assert ttrain.fit_svgp.kernel_once == before[1] + (case == "frozen")
+
+
+def test_fit_svgp_counts_on_itself_when_its_name_is_rebound(monkeypatch):
+    """A wrapper put in the module's place (as a planted fault is) still
+    reaches the counters on the function it wraps."""
+    fit = ttrain.fit_svgp
+    monkeypatch.setattr(ttrain, "fit_svgp", lambda *a, **k: fit(*a, **k))
+    jsvgp, x, y = jax_svgp("gaussian", fitted=False)
+    tsvgp = convert.svgp_from_numpy(svgp_params(jsvgp), device=CPU)
+    before = fit.fits, fit.kernel_once
+    ttrain.fit_svgp(tsvgp, torch.as_tensor(x), torch.as_tensor(y), 1, batch_size=8,
+                    learning_rate=0.1, learn_kernel_parameters=False, generator=1)
+    assert (fit.fits, fit.kernel_once) == (before[0] + 1, before[1] + 1)
 
 
 def test_exact_gp_stopper_discards_the_stopping_update():

@@ -221,24 +221,32 @@ def test_fit_exact_gp_matches_the_per_epoch_loop(chunk, case):
     assert _same(gp.noise, torch.exp(params[3]))
 
 
-def _svgp(d=2, m=6, seed=1):
+def _svgp(d=2, m=6, seed=1, pls=False):
     rng = np.random.default_rng(seed)
     z = torch.as_tensor(rng.uniform(-2.0, 2.0, (m, d)))
-    return pt.init_svgp(0.1, _kernel(d), pt.GaussianLikelihood(noise=torch.tensor(
+    kernel = pt.PLSKernel(base_kernel=_kernel(d), approximation_samples=z) if pls else _kernel(d)
+    return pt.init_svgp(0.1, kernel, pt.GaussianLikelihood(noise=torch.tensor(
         0.2, dtype=torch.float64)), z)
 
 
-def _svgp_per_epoch(svgp, x, y, epochs, batch, lr, patience, orders):
+def _svgp_per_epoch(svgp, x, y, epochs, batch, lr, patience, orders, learn_kernel=True):
+    """fit_svgp's epoch as a plain loop: every batch's ELBO from its rows of
+    x (K_zz, its factor and the projection rebuilt each time), optax's SGD on
+    the trained parameters, the adopting stopper and the abort."""
     names = ("mean_constant", "log_lengthscales", "log_outputscale", "variational_mean",
              "variational_chol", "log_noise")
+    kernel_side = ("log_lengthscales", "log_outputscale")
+    trained = names if learn_kernel else tuple(k for k in names if k not in kernel_side)
     params = gp_training._svgp_params(svgp, False)
     n = y.shape[0]
 
     def sgd(p, index):
-        p = {k: v.detach().requires_grad_() for k, v in p.items()}
+        p = {k: v.detach().requires_grad_(k in trained) for k, v in p.items()}
         loss = -gp_training._svgp_from_params(p, svgp).elbo(x[index], y[index], n) / n
-        grads = torch.autograd.grad(loss, [p[k] for k in names], allow_unused=True)
-        return {k: p[k].detach() - lr * g for k, g in zip(names, grads)}
+        grads = torch.autograd.grad(loss, [p[k] for k in trained], allow_unused=True)
+        new = {k: v.detach() for k, v in p.items()}
+        new.update({k: new[k] - lr * g for k, g in zip(trained, grads)})
+        return new
 
     def step(t, state):
         p = dict(zip(names, state))
@@ -257,24 +265,45 @@ def _svgp_per_epoch(svgp, x, y, epochs, batch, lr, patience, orders):
     return (None, None) if aborted else (dict(zip(names, state)), losses)
 
 
-@pytest.mark.parametrize("case", ["run", "stop", "abort"])
-def test_fit_svgp_matches_the_per_epoch_loop(chunk, case):
+SVGP_CASES = [(case, kernel) for kernel in ("learned", "frozen_ard", "frozen_pls")
+              for case in ("run", "stop", "abort")]
+
+
+@pytest.mark.parametrize("case,kernel", SVGP_CASES,
+                         ids=[c if k == "learned" else f"{k}-{c}" for c, k in SVGP_CASES])
+def test_fit_svgp_matches_the_per_epoch_loop(chunk, case, kernel):
+    """A learned kernel takes the per-batch ELBO: bit for bit the loop's. A
+    frozen one (ARD, or the PLS r-kernel) evaluates its kernel side once a
+    fit and gathers each batch's rows, whose solve over all 30 rows may round
+    a last bit apart from the loop's over a batch: rtol 1e-12."""
     x, y = _gp_data(n=30)
     lr, patience, epochs = {"run": (0.1, math.inf, 11), "stop": (2.0, 0.0, 11),
                             "abort": (1e6, math.inf, 5)}[case]
     orders = np.stack([np.random.default_rng(e).permutation(30) for e in range(epochs)])
-    svgp = _svgp()
-    fit, losses = pt.fit_svgp(svgp, x, y, epochs, 8, lr, early_stopper_patience=patience,
-                              orders=orders)
-    ref, ref_losses = _svgp_per_epoch(svgp, x, y, epochs, 8, lr, patience, orders)
+    learn_kernel = kernel == "learned"
+    svgp = _svgp(pls=kernel == "frozen_pls")
+    fit, losses = pt.fit_svgp(svgp, x, y, epochs, 8, lr, learn_kernel_parameters=learn_kernel,
+                              early_stopper_patience=patience, orders=orders)
+    ref, ref_losses = _svgp_per_epoch(svgp, x, y, epochs, 8, lr, patience, orders,
+                                      learn_kernel=learn_kernel)
     if case == "abort":
         assert fit is None and losses is None and ref is None
         return
-    assert losses == ref_losses
     assert (0 < len(losses) < epochs) if case == "stop" else len(losses) == epochs
-    assert _same(fit.variational_mean, ref["variational_mean"])
-    assert _same(fit.variational_chol, ref["variational_chol"])
-    assert _same(fit.kernel.lengthscales, torch.exp(ref["log_lengthscales"]))
+    if learn_kernel:
+        assert losses == ref_losses
+        assert _same(fit.variational_mean, ref["variational_mean"])
+        assert _same(fit.variational_chol, ref["variational_chol"])
+        assert _same(fit.kernel.lengthscales, torch.exp(ref["log_lengthscales"]))
+        return
+    assert len(losses) == len(ref_losses)
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-12, atol=0)
+    fitted = gp_training._svgp_params(fit, False)
+    for name, value in ref.items():
+        np.testing.assert_allclose(fitted[name].numpy(), value.numpy(), rtol=1e-12, atol=0,
+                                   err_msg=name)
+    assert _same(gp_training._base_ard(fit.kernel).lengthscales,
+                 gp_training._base_ard(svgp.kernel).lengthscales)
 
 
 def test_fit_svgp_permutations_do_not_depend_on_the_chunk(monkeypatch):

@@ -167,6 +167,27 @@ def test_answers_do_not_depend_on_the_profiler(call):
     assert all(torch.equal(a, b) for a, b in zip(_bits(off), _bits(on)))
 
 
+def test_a_frozen_svgp_fit_opens_one_projection_span(monkeypatch):
+    """A fit that learns neither its kernel nor its inducing inputs projects
+    the data once, in ``pls.fit_svgp.project`` inside its outer span and
+    before its run; a fit that learns its kernel opens no such span."""
+    monkeypatch.setattr(early_stopper, "CHECK_EVERY", CHUNK)
+    x, y = _gp_data()
+    z = torch.as_tensor(np.random.default_rng(1).uniform(-2.0, 2.0, (6, 2)))
+    svgp = pt.init_svgp(0.1, pt.PLSKernel(base_kernel=_kernel(2), approximation_samples=z),
+                        pt.GaussianLikelihood(noise=torch.tensor(0.2, dtype=torch.float64)), z)
+    for learn_kernel, opened in ((False, 1), (True, 0)):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pt.fit_svgp(svgp, x, y, STEPS, 8, 0.05, learn_kernel_parameters=learn_kernel,
+                        generator=5)
+        spans = _spans(prof)
+        where = {name: (a, b) for name, a, b in spans}
+        assert [s[0] for s in spans].count("pls.fit_svgp.project") == opened
+        if opened:
+            a, b = where["pls.fit_svgp.project"]
+            assert where["pls.fit_svgp"][0] <= a <= b <= where["pls.run_training"][0]
+
+
 @pytest.mark.card
 def test_a_graphed_run_opens_a_warmup_and_a_capture_a_graph(monkeypatch):
     if not torch.cuda.is_available():
