@@ -26,7 +26,13 @@ its items through the product's ring of asynchronous copies.
 
 :func:`quadratic_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`quadratic_train_reference` only for
-tensors that lie on the CPU. ``quadratic_train.launches`` counts whole runs.
+tensors that lie on the CPU. ``quadratic_train.launches`` counts whole runs
+of the kernel, ``quadratic_train.steps`` the steps of every run the wrapper
+takes, on either path. Under the profiler a call is the span
+``pls.quadratic_train`` (``utils/tracing.span``); on CUDA tensors it holds
+``.prepare`` (the casts, the phase plan, the buffers), ``.launch`` (the C
+call that queues the run) and ``.stopper`` (the stopper's replay over the
+energies).
 
 A ``shard`` (:class:`~projected_langevin_sampling_torch.utils.columns.ColumnShard`)
 runs columns j0 .. j0 + J_loc of a J-column run, as B3's does
@@ -54,6 +60,7 @@ from projected_langevin_sampling_torch.utils.early_stopper import (
     run_training,
     take,
 )
+from projected_langevin_sampling_torch.utils.tracing import span
 
 # fp32 operations per element of U and step besides the products, for the
 # bound in PERF.md and chip_smoke.py: Philox and Box-Muller (31, as B1), the
@@ -185,67 +192,75 @@ def quadratic_train(
     the plain loop. ``zero_noise`` switches the noise off for exact comparison
     with the plain version. ``shard``: the columns of a J-column run these
     particles are (module note). On CPU tensors the plain loop runs."""
-    if u0.device.type == "cpu":
-        return quadratic_train_reference(
-            a, b, energy_matrix, energy_bias, noise_factor, u0, eta=eta, patience=patience,
-            e_const=e_const, num_steps=num_steps, shared=shared, zero_noise=zero_noise,
-            noise=noise, generator=generator, shard=shard,
-        )
-    if u0.device.type != "cuda":
-        raise ValueError(f"quadratic_train: particles on {u0.device}")
-    if noise is not None:
-        raise ValueError("quadratic_train: the kernel draws its own Philox noise; "
-                         "injected noise is for CPU tensors")
-    if u0.ndim != 2:
-        raise ValueError(f"quadratic_train: particles of shape {tuple(u0.shape)}")
-    m, j = u0.shape
-    if shared and noise_factor is not None:
-        raise ValueError("quadratic_train: a shared system has iid noise (noise_factor None)")
-    if not shared and noise_factor is None and not zero_noise:
-        raise ValueError("quadratic_train: a non-shared system needs its noise factor")
-    for name, t, shape in (("A", a, (m, m)), ("E", energy_matrix, (m, m)), ("b", b, (m,)),
-                           ("e_bias", energy_bias, (m,)), ("S", noise_factor, (m, m))):
-        if t is not None and (t.shape != shape or t.device != u0.device):
-            raise ValueError(f"quadratic_train: {name} of shape {tuple(t.shape)} on {t.device}")
-    if not 0 <= int(seed) < 2**64:
-        raise ValueError(f"quadratic_train: seed {seed} outside [0, 2^64)")
-    if m * j >= 2**31:
-        raise ValueError("quadratic_train: the particles have 2^31 or more elements")
-    j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
-    if j0 % 4:
-        raise ValueError(f"quadratic_train: a shard starts at column {j0}, not a multiple of 4")
-    dtype, device = u0.dtype, u0.device
-    if num_steps == 0:
-        empty = torch.zeros(0, dtype=dtype, device=device)
-        return u0.clone(), empty, empty.bool(), torch.tensor(0, dtype=torch.int32)
-    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    a32, b32, e32, eb32 = f32(a), f32(b), f32(energy_matrix), f32(energy_bias)
-    s32 = a32 if noise_factor is None else f32(noise_factor)  # unread when shared or noiseless
-    items = phase(m, j, shared, zero_noise)
-    with torch.cuda.device(device):
-        u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
-        u_b = torch.empty_like(u_a)
-        # the normals of even and odd steps; unread without noise
-        eps = u_b if zero_noise else torch.empty((2, m, j), device=device)
-        slabs = torch.empty(items.slab, dtype=torch.float32, device=device)
-        arrived = torch.empty(items.tiles, dtype=torch.int32, device=device)
-        # one energy partial a block in two sets; the grid never exceeds the items
-        partials = torch.empty(2 * items.items, dtype=torch.float64, device=device)
-        energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
-        lib = build.load("quadratic_train", _SIGNATURES)
-        err = lib.plst_quadratic_train(
-            a32.data_ptr(), e32.data_ptr(), s32.data_ptr(), b32.data_ptr(), eb32.data_ptr(),
-            u_a.data_ptr(), u_b.data_ptr(), eps.data_ptr(), slabs.data_ptr(),
-            arrived.data_ptr(), partials.data_ptr(), energies.data_ptr(), m, j, j0, j_total,
-            int(num_steps), int(shared), items.slices, float(eta), float(patience),
-            float(constant_share(e_const, j, shard)), int(seed),
-            int(zero_noise), torch.cuda.current_stream().cuda_stream,
-        )
+    with span("pls.quadratic_train"):
+        if u0.device.type == "cpu":
+            quadratic_train.steps += int(num_steps)
+            return quadratic_train_reference(
+                a, b, energy_matrix, energy_bias, noise_factor, u0, eta=eta, patience=patience,
+                e_const=e_const, num_steps=num_steps, shared=shared, zero_noise=zero_noise,
+                noise=noise, generator=generator, shard=shard,
+            )
+        if u0.device.type != "cuda":
+            raise ValueError(f"quadratic_train: particles on {u0.device}")
+        if noise is not None:
+            raise ValueError("quadratic_train: the kernel draws its own Philox noise; "
+                             "injected noise is for CPU tensors")
+        if u0.ndim != 2:
+            raise ValueError(f"quadratic_train: particles of shape {tuple(u0.shape)}")
+        m, j = u0.shape
+        if shared and noise_factor is not None:
+            raise ValueError("quadratic_train: a shared system has iid noise (noise_factor None)")
+        if not shared and noise_factor is None and not zero_noise:
+            raise ValueError("quadratic_train: a non-shared system needs its noise factor")
+        for name, t, shape in (("A", a, (m, m)), ("E", energy_matrix, (m, m)), ("b", b, (m,)),
+                               ("e_bias", energy_bias, (m,)), ("S", noise_factor, (m, m))):
+            if t is not None and (t.shape != shape or t.device != u0.device):
+                raise ValueError(f"quadratic_train: {name} of shape {tuple(t.shape)} on {t.device}")
+        if not 0 <= int(seed) < 2**64:
+            raise ValueError(f"quadratic_train: seed {seed} outside [0, 2^64)")
+        if m * j >= 2**31:
+            raise ValueError("quadratic_train: the particles have 2^31 or more elements")
+        j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
+        if j0 % 4:
+            raise ValueError(f"quadratic_train: a shard starts at column {j0}, not a multiple of 4")
+        dtype, device = u0.dtype, u0.device
+        if num_steps == 0:
+            empty = torch.zeros(0, dtype=dtype, device=device)
+            return u0.clone(), empty, empty.bool(), torch.tensor(0, dtype=torch.int32)
+        with span("pls.quadratic_train.prepare"):
+            f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+            a32, b32, e32, eb32 = f32(a), f32(b), f32(energy_matrix), f32(energy_bias)
+            # unread when shared or noiseless
+            s32 = a32 if noise_factor is None else f32(noise_factor)
+            items = phase(m, j, shared, zero_noise)
+            with torch.cuda.device(device):
+                u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
+                u_b = torch.empty_like(u_a)
+                # the normals of even and odd steps; unread without noise
+                eps = u_b if zero_noise else torch.empty((2, m, j), device=device)
+                slabs = torch.empty(items.slab, dtype=torch.float32, device=device)
+                arrived = torch.empty(items.tiles, dtype=torch.int32, device=device)
+                # one energy partial a block in two sets; the grid never exceeds the items
+                partials = torch.empty(2 * items.items, dtype=torch.float64, device=device)
+                energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
+            lib = build.load("quadratic_train", _SIGNATURES)
+        with span("pls.quadratic_train.launch"), torch.cuda.device(device):
+            err = lib.plst_quadratic_train(
+                a32.data_ptr(), e32.data_ptr(), s32.data_ptr(), b32.data_ptr(), eb32.data_ptr(),
+                u_a.data_ptr(), u_b.data_ptr(), eps.data_ptr(), slabs.data_ptr(),
+                arrived.data_ptr(), partials.data_ptr(), energies.data_ptr(), m, j, j0, j_total,
+                int(num_steps), int(shared), items.slices, float(eta), float(patience),
+                float(constant_share(e_const, j, shard)), int(seed),
+                int(zero_noise), torch.cuda.current_stream().cuda_stream,
+            )
         build.check(err, "quadratic_train kernel")
         quadratic_train.launches += 1
+        quadratic_train.steps += int(num_steps)
         energies = energies.to(dtype)
-        recorded, steps_run = replay_early_stopper(energies, eta, patience)
-    return u_a.to(dtype), energies, recorded, steps_run
+        with span("pls.quadratic_train.stopper"), torch.cuda.device(device):
+            recorded, steps_run = replay_early_stopper(energies, eta, patience)
+        return u_a.to(dtype), energies, recorded, steps_run
 
 
 quadratic_train.launches = 0
+quadratic_train.steps = 0

@@ -469,7 +469,8 @@ def _train_pls_loop(
             shard=shard,
         ))
     if tier == "quadratic_fused":
-        a_mat, b_vec, e_mat, e_bias, e_const, shared = _quadratic_system(basis, cost)
+        with span("pls.train_pls.quadratic_system"):
+            a_mat, b_vec, e_mat, e_bias, e_const, shared = _quadratic_system(basis, cost)
         return TrainResult(*quadratic_train(
             a_mat,
             b_vec,
@@ -490,7 +491,8 @@ def _train_pls_loop(
 
     draw = _update_noise(basis, noise, generator, particles.shape[1], shard)
     if tier == "quadratic":
-        a_mat, b_vec, e_mat, e_bias, e_const, shared = _quadratic_system(basis, cost)
+        with span("pls.train_pls.quadratic_system"):
+            a_mat, b_vec, e_mat, e_bias, e_const, shared = _quadratic_system(basis, cost)
 
         def step(t, state):
             # shared: v carries A u, one matmul per step serves this step's
@@ -600,7 +602,9 @@ def train_pls(
     ``off`` and ``quadratic`` tiers run as chunks of CUDA-graph replays of
     one step (``utils/early_stopper.run_training``). Under the profiler the
     call is the span ``pls.train_pls``, its read-back of the energies
-    ``pls.train_pls.readback`` (``utils/tracing.span``)."""
+    ``pls.train_pls.readback``, and on the ``quadratic`` tiers the making of
+    the M-space system ``pls.train_pls.quadratic_system``
+    (``utils/tracing.span``)."""
     with span("pls.train_pls"):
         if generator is None and seed is not None:
             generator = seed

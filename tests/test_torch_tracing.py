@@ -1,6 +1,6 @@
 """The program's spans (``utils/tracing.span``) in ``train_pls`` (the ``off``
-tier), ``fit_svgp`` and ``fit_exact_gp``, and in the general-cost kernel's
-wrapper.
+tier), ``fit_svgp`` and ``fit_exact_gp``, and in the wrappers of the
+general-cost and quadratic-tier kernels.
 
 With no profiler running nothing is constructed. Under
 ``torch.profiler.profile`` a call opens its outer span and one
@@ -91,6 +91,27 @@ def _general_fused(device="cpu"):
     u0 = pls.initialise_particles(6, generator=0)
     return pt.train_pls(pls, u0, STEPS, 1e-3, generator=3, fast_path="general_fused",
                         discretisation="preconditioned")
+
+
+QUADRATIC_SPANS = ("pls.quadratic_train.prepare", "pls.quadratic_train.launch",
+                   "pls.quadratic_train.stopper")
+
+
+def _quadratic_fused(device="cpu"):
+    """A Gaussian-cost IPB model trained on the ``quadratic_fused`` tier: B4
+    on the card, its plain loop on the CPU."""
+    dtype = torch.float64 if device == "cpu" else torch.float32
+    rng = np.random.default_rng(0)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    x = as_t(np.sort(rng.uniform(-2.0, 2.0, (40, 1)), 0))
+    y = torch.sin(2.0 * x[:, 0]) + 0.1 * as_t(rng.normal(size=40))
+    z = x[::5][:8]
+    kernel = pt.PLSKernel(base_kernel=pt.ARDKernel(as_t([0.6]), as_t(1.0)),
+                          approximation_samples=x)
+    basis = pt.build_inducing_point_basis(kernel, z, torch.sin(2.0 * z[:, 0]), x)
+    pls = pt.PLS(basis, pt.GaussianCost(y_train=y, observation_noise=as_t(0.1)))
+    u0 = pls.initialise_particles(6, noise_only=False, generator=0)
+    return pt.train_pls(pls, u0, STEPS, 1e-3, generator=3, fast_path="quadratic_fused")
 
 
 # call, its outer span, its read-back span
@@ -248,3 +269,51 @@ def test_a_general_fused_run_opens_one_launch_and_counts_its_steps():
     assert stages[0][1] <= stages[1][0] and stages[1][1] <= stages[2][0]
     assert general_train.launches == before[0] + 1
     assert general_train.steps == before[1] + STEPS == before[1] + len(energies)
+
+
+def test_quadratic_fused_on_the_cpu_opens_the_wrappers_span_and_counts_its_steps():
+    """On CPU tensors ``train_pls`` makes the M-space system inside
+    ``pls.train_pls.quadratic_system`` and B4's wrapper runs its plain loop
+    inside ``pls.quadratic_train``: no kernel is prepared or launched, and the
+    steps are counted."""
+    from projected_langevin_sampling_torch.ops.cuda.quadratic_train import quadratic_train
+
+    before = quadratic_train.launches, quadratic_train.steps
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _quadratic_fused()
+    spans = _spans(prof)
+    names = [s[0] for s in spans]
+    assert [names.count(n) for n in ("pls.train_pls", "pls.train_pls.quadratic_system",
+                                     "pls.quadratic_train")] == [1, 1, 1]
+    assert not set(QUADRATIC_SPANS) & set(names)
+    where = {name: (a, b) for name, a, b in spans}
+    outer, system, inner = (where[n] for n in ("pls.train_pls", "pls.train_pls.quadratic_system",
+                                               "pls.quadratic_train"))
+    assert outer[0] <= system[0] <= system[1] <= inner[0] <= inner[1] <= outer[1]
+    assert (quadratic_train.launches, quadratic_train.steps) == (before[0], before[1] + STEPS)
+
+
+@pytest.mark.card
+def test_a_quadratic_fused_run_opens_one_span_of_each_stage_and_counts_its_steps():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest tests/test_torch_tracing.py "
+                    "-m card --noconftest)")
+    from projected_langevin_sampling_torch.ops.cuda.quadratic_train import quadratic_train
+
+    _quadratic_fused(device="cuda")  # builds the kernel outside the trace
+    before = quadratic_train.launches, quadratic_train.steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, energies = _quadratic_fused(device="cuda")
+    spans = _spans(prof)
+    names = [s[0] for s in spans]
+    assert [names.count(n) for n in ("pls.train_pls.quadratic_system", "pls.quadratic_train",
+                                     *QUADRATIC_SPANS)] == [1, 1, 1, 1, 1]
+    where = {name: (a, b) for name, a, b in spans}
+    outer = where["pls.quadratic_train"]
+    assert where["pls.train_pls"][0] <= outer[0] <= outer[1] <= where["pls.train_pls"][1]
+    assert where["pls.train_pls.quadratic_system"][1] <= outer[0]
+    stages = [where[n] for n in QUADRATIC_SPANS]
+    assert all(outer[0] <= a <= b <= outer[1] for a, b in stages)
+    assert stages[0][1] <= stages[1][0] and stages[1][1] <= stages[2][0]
+    assert quadratic_train.launches == before[0] + 1
+    assert quadratic_train.steps == before[1] + STEPS == before[1] + len(energies)
