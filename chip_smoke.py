@@ -74,10 +74,11 @@ each run with the launch counters set to 0 just before it and read just after:
   to the spread of the port's CPU runs of the same data over PLS seeds.
 
 Phase 1 also reports whether the built B3, B4 and B5 libraries hold
-tensor-core instructions (HMMA in ``cuobjdump -sass``), the tiling of their
-product (``csrc/tc_product.cuh``), and the op mix of B1's step loop in its
-SASS; phase 2 runs each path of B2 (16-byte stores, scalar stores at a
-ragged edge, the staged path for large D); phase 3 holds B1's draws to a CPU
+tensor-core instructions (HMMA or HGMMA in ``cuobjdump -sass``), the tiling
+of their products (``csrc/tc_product.cuh``, B3's ``update_plan``), and the
+op mix of B1's step loop in its SASS; phase 2 runs each path of B2 (16-byte
+stores, scalar stores at a ragged edge, the staged path for large D); phase
+3 holds B1's draws to a CPU
 mirror of its Philox and Box-Muller and a noisy run at the main path's noise
 scale to the plain loop fed the mirror's normals, checks their tail, splits B1's device
 time into its normals and the rest, and sets the op mix against the measured
@@ -889,17 +890,19 @@ def phase_general(pt, gen):
     log("  B3 branch-free reciprocal and log1p: the library's bits on every float each takes "
         "(1,056,964,608 and 2,139,095,040)")
 
-    # ... the forward's operands, split once on the card, are the plain split's
-    # bit for bit (the headline's and rice's shapes: M_k 512 and 55, padded)
+    # ... the products' operands, split once on the card, are the plain split's
+    # bit for bit (the headline's and rice's shapes: M_k 512 and 55, padded;
+    # N 5000 and 3048, padded for the update)
     for n, m_k, j in ((N, M, J), (3048, 55, 1000)):
         p = torch.randn((n, m_k), device="cuda")
         u = torch.randn((m_k, j), device="cuda")
-        k = gen.forward_plan(n, m_k, j).k
-        on_card = gen.split_operands(p, u, k)
-        plain = gen.split_operands_reference(p, u, k)
+        k, depth = gen.forward_plan(n, m_k, j).k, gen.update_plan(n, m_k, j).depth
+        on_card = (*gen.split_operands(p, u, k), gen.split_update_operand(p, k, depth))
+        plain = (*gen.split_operands_reference(p, u, k),
+                 gen.split_update_operand_reference(p, k, depth))
         require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                     for a, b in zip(on_card, plain)), f"split operands at {(n, m_k, j)}")
-    log("  B3 forward operands split on the card are the plain split's bit for bit "
+    log("  B3 forward and update operands split on the card are the plain split's bit for bit "
         f"(N, M_k, J) = {(N, M, J)} and (3048, 55, 1000)")
 
     # ... a ragged depth at rice's shape (M_k = 55, padded to 64), and a shard of
@@ -946,6 +949,49 @@ def phase_general(pt, gen):
     u2, e2, _, _ = gen.general_train(**kw)
     require(bool(torch.equal(u1, u2) and torch.equal(e1, e2)), "noisy reruns differ")
     log("  B3 two noisy runs with one seed are bitwise equal")
+
+    # ... and noisy runs against the plain loop on the kernel's own normals
+    # (rebuilt from the seed): the three discretisations, rice's M_k, a shard at
+    # j0 = 128, and a run that stops; every step a wgmma update
+    from benchmark.reference.pls_philox import normals
+
+    seed, steps = 2**33 + 12345, 50
+    cases = (("bernoulli_sigmoid_smoothed", N6, M6, J6, disc, None, ETA6, steps)
+             for disc in gen.DISCRETISATIONS)
+    cases = (*cases, ("student_t", 3048, 55, 1000, "preconditioned", None, ETA6, steps),
+             ("gaussian", N6, M6, J6, "exponential", ColumnShard(j0=128, j_total=3 * J6), ETA6,
+              steps),
+             ("gaussian", N6, M6, J6, "euler", None, 50.0, 20))
+    for kind, n, m_k, j, disc, shard, eta, t in cases:
+        prob = synthetic_general(kind, n=n, m_k=m_k, j=j, seed=5)
+        j0, j_total = (0, j) if shard is None else (shard.j0, shard.j_total)
+        eps = normals(seed, m_k, j_total, 0, t, "cuda")[:, :, j0:j0 + j].float()
+        what = f"noisy {kind}/{disc} N={n} M_k={m_k} J={j} j0={j0} eta={eta} T={t}"
+        steps_before = gen.general_train.steps, gen.general_train.update_wgmma_steps
+        u_k, e_k, rec_k, s_k = gen.general_train(**prob, eta=eta, patience=math.inf,
+                                                 num_steps=t, discretisation=disc, seed=seed,
+                                                 shard=shard)
+        u_p, e_p, rec_p, s_p = gen.general_train_reference(
+            **prob, eta=eta, patience=math.inf, num_steps=t, discretisation=disc, noise=eps,
+            shard=shard)
+        torch.cuda.synchronize()
+        require(gen.general_train.steps - steps_before[0] == t
+                == gen.general_train.update_wgmma_steps - steps_before[1],
+                f"{what}: not every step a wgmma update")
+        require(int(s_k) == int(s_p) and bool((rec_k == rec_p).all())
+                and bool((torch.isnan(e_k) == torch.isnan(e_p)).all()), f"{what}: steps")
+        finite = torch.isfinite(u_p)
+        require(bool((finite == torch.isfinite(u_k)).all()), f"{what}: non-finite particles")
+        scale = max(1.0, float(u_p[finite].abs().max()))
+        err_w = float((u_k[finite] - u_p[finite]).abs().max())
+        if int(s_p) < t:  # stopped: frozen particles normwise, as hold_stop holds them
+            log(f"  B3 {what}: steps_run {int(s_k)} (plain {int(s_p)}), flags and NaN tail "
+                f"agree; frozen particles max|dU| {err_w:.3e} of max|U| {scale:.3e}")
+            require(err_w <= 1e-4 * scale, f"{what}: frozen particles disagree")
+            continue
+        err_e = float(((e_k - e_p) / e_p).abs().max())
+        log(f"  B3 {what}: max|dU| {err_w:.3e} (max|U| {scale:.2f}), max rel dE {err_e:.3e}")
+        require(err_w <= W_TOL * scale and err_e <= E_RTOL, f"{what}: disagrees")
 
     # (d) the law: Gaussian kind, Euler with noise; in the eigenbasis of A the
     # rows follow N(b_rot / sigma, 2 / (sigma (2 - eta sigma)))
@@ -3057,9 +3103,9 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     for name in ("general_train", "quadratic_train", "fused_update"):
         text = sass_text(build.library_path(name))
-        hmma = None if text is None else text.count("HMMA")
-        log(f"  {name}: " + ("HMMA not measured (no cuobjdump)" if hmma is None
-                              else f"{hmma} HMMA instructions in its SASS"))
+        hmma = None if text is None else text.count("HMMA") + text.count("HGMMA")
+        log(f"  {name}: " + ("HMMA/HGMMA not measured (no cuobjdump)" if hmma is None
+                              else f"{hmma} HMMA and HGMMA instructions in its SASS"))
         require(hmma is None or hmma > 0, f"{name} holds no tensor-core instruction")
     b1_mixes = b1_step_mixes(build.library_path("spectral_train"))
     for kernel, mix in (b1_mixes or {}).items():
@@ -3069,10 +3115,10 @@ def main() -> int:
     if b1_mixes is None:
         log("  spectral_train: step-loop op mix not measured (no cuobjdump)")
     log(f"  tensor-core product (csrc/tc_product.cuh): {tc.TILE_M} x {tc.TILE_N} tiles, stages of "
-        f"{tc.TILE_K}; at the headline B3's update splits N into "
-        f"{tc.split_k(M, J, N).slices} slices and B5's matrix-prior update its depth into "
-        f"{tc.split_k(M, J, -(-N // tc.TILE_K) * tc.TILE_K + M).slices}, over "
-        f"{tc.split_k(M, J, N).tiles} output tiles")
+        f"{tc.TILE_K}; at the headline B5's matrix-prior update splits its depth into "
+        f"{tc.split_k(M, J, -(-N // tc.TILE_K) * tc.TILE_K + M).slices} slices over "
+        f"{tc.split_k(M, J, N).tiles} output tiles; B3's wgmma update (csrc/general_train.cu) "
+        f"{gen.update_plan(N, M, J)}")
 
     def phase(title, fn, *args):
         log(title)

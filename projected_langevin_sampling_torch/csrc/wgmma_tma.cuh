@@ -1,9 +1,11 @@
-// Hopper's asynchronous pieces for B3's forward sweep (general_train.cu), in
+// Hopper's asynchronous pieces for B3's two products (general_train.cu), in
 // raw PTX: mbarriers, TMA tile loads from a tensor map, and the warpgroup
-// product wgmma on TF32 operands that both lie K-major in shared memory with
-// the 128-byte swizzle TMA writes. The host encodes a tensor map through the
-// driver's cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPointByVersion,
-// so nothing links against libcuda. sm_90a only.
+// product wgmma on TF32 operands: B K-major in shared memory with the 128-byte
+// swizzle TMA writes, and A either the same (the forward) or in the
+// warpgroup's registers (the update). The host encodes a tensor map through
+// the driver's cuTensorMapEncodeTiled, reached with
+// cudaGetDriverEntryPointByVersion, so nothing links against libcuda. sm_90a
+// only.
 
 #pragma once
 
@@ -68,6 +70,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// --- registers -------------------------------------------------------------
+
+// A warpgroup's registers a thread, lowered or raised to REGS (a multiple of 8
+// in [24, 256]): every warp of the warpgroup runs it. A producer that needs
+// few hands them to the warpgroups that multiply.
+template <int REGS>
+__device__ __forceinline__ void set_registers_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void set_registers_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
 // --- TMA -------------------------------------------------------------------
 
 // A box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first, into
@@ -78,6 +95,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A box of a 2-D tensor map at coordinates (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -108,6 +135,14 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for registers that hold A's fragments: wgmma reads them until the
+// wait that covers it, so they stay live, unmoved, up to that point.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_commit() {
@@ -151,6 +186,39 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d += A B on a 64 x 128 tile, 8 deep, with A (64 x 8) in the warpgroup's
+// registers: a[q] of thread t is A(16 (t / 32) + (t % 32) / 4 + 8 (q & 1),
+// t % 4 + 4 (q >> 1)), TF32 bit patterns (the fragment of mma.sync's
+// m16n8k8, one 16-row slab a warp); B (8 x 128) TF32, K-major in shared
+// memory (descriptor b); d as in wgmma_m64n128k8_tf32. The registers of a
+// stay untouched until a wait covers the product (fence_operands).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p_acc;\n"
+      "setp.ne.b32 p_acc, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p_acc, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // --- host: tensor maps -----------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -187,6 +255,23 @@ inline bool encode_split_map(CUtensorMap* map, const void* base, int rows, int d
   const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 2};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of an fp32 matrix (rows, cols), row-major with a pitch of `pitch`
+// floats (a multiple of 4: 16-byte strides), read in boxes of (32, 32) with
+// the 128-byte swizzle: 32 rows of 32 columns, 4 KB. Columns and rows past
+// the edge read as zeros. Returns false where the driver refuses.
+inline bool encode_tile_map(CUtensorMap* map, const void* base, int rows, int cols, int pitch) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 4};
+  const cuuint32_t box[2] = {32, 32};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -24,8 +24,8 @@ launches per step on the current stream (forward product with the cost
 epilogue, a one-block stopper, the transposed product with the update) and
 never synchronises inside the run; the stopper state lives on the card, so
 there is one pass whatever the patience. Operands and sums are fp32, the
-products in 3xTF32 (``csrc/tc_product.cuh``), where the TPU kernel feeds
-bf16 to its MXU; like B1 it has no resident-size limit.
+products in 3xTF32 on ``wgmma`` (``csrc/wgmma_tma.cuh``), where the TPU
+kernel feeds bf16 to its MXU; like B1 it has no resident-size limit.
 
 Tiling. The forward sweep (F = P U and the cost epilogue) is one persistent
 block an SM (:func:`forward_plan`): its (N, J) output in 64 x 128 tiles,
@@ -39,20 +39,30 @@ M_k padded with zero columns to a multiple of ``FORWARD_TILE_K``; the run's
 first launch writes both, and every update writes U'^T's halves beside U'.
 The smoothed kind's division and ``log1pf`` run as branch-free twins that
 give the library's bits on every input they take (:func:`check_math`).
-The update's (M_k, J) output (``ops/cuda/tc_product.py``, ``mma.sync``) in
-64 x 128 tiles, one prior partial and one split-K arrival counter each, over
-:func:`~projected_langevin_sampling_torch.ops.cuda.tc_product.split_k`
-slices of N, whose partial tiles go to a slab of scratch.
+The update computes the transpose G^T = dc^T P, also persistent on
+``wgmma`` (:func:`update_plan`, :func:`update_schedule`): its (J, M_k) output
+in 128 x 128 tiles, one split-K arrival counter each, over slices of N whose
+partial tiles go to a slab of scratch; once a tile's units have all arrived
+(they run in one wave, one block an SM), each sums one band of the tile's
+rows in slice order and updates it, one prior partial a unit. ``wgmma``
+reads TF32 B only K-major, so B is P^T's TF32 halves (2, K, depth), depth =
+N padded to a multiple of ``UPDATE_TILE_K``, split once a run beside the
+forward's operands (:func:`split_update_operand`); A is dc^T, read from dc's
+fp32 tile in shared memory and split in registers (:func:`update_product` is
+the plain product of these operands). dc's rows lie :func:`dc_pitch` floats
+apart, J rounded up to 4, the 16-byte stride TMA needs.
 
 :func:`general_train` launches the kernel for CUDA tensors, in fp32 with a
 cast at entry and exit, and runs :func:`general_train_reference` only for
 tensors that lie on the CPU. ``general_train.launches`` counts whole runs
-(one C call queues the 3 T + 2 kernel launches of a run), and
-``general_train.steps`` the steps those runs queue. Under the profiler a
-call is the span ``pls.general_train`` (``utils/tracing.span``); on CUDA
-tensors it holds ``.prepare`` (the casts, the row constants, the GH16
-scalars and the buffers, the split operands' 2 (N + J) K floats among
-them: 24 MB at the headline), ``.launch`` (the C call) and ``.stopper`` (the
+(one C call queues the 3 T + 2 kernel launches of a run),
+``general_train.steps`` the steps those runs queue, and
+``general_train.update_wgmma_steps`` those whose update ran on the ``wgmma``
+update (all of them, on the card). Under the profiler a call is the span
+``pls.general_train`` (``utils/tracing.span``); on CUDA tensors it holds
+``.prepare`` (the casts, the row constants, the GH16 scalars and the
+buffers, the split operands' 2 (N + J) K + 2 K depth floats among them: 45
+MB at the headline), ``.launch`` (the C call) and ``.stopper`` (the
 stopper's replay, which reads the energies back).
 
 A ``shard`` (:class:`~projected_langevin_sampling_torch.utils.columns.ColumnShard`)
@@ -94,11 +104,11 @@ JITTER = 1e-10
 OPS_PER_UPDATE_ELEMENT = 8 + 4 + 31
 
 _SIGNATURES = {
-    "plst_general_train": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 + [
+    "plst_general_train": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 14 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
         ctypes.c_void_p,
     ],
-    "plst_general_split_operands": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "plst_general_split_operands": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "plst_general_check_math": [ctypes.c_void_p, ctypes.c_void_p],
 }
 
@@ -133,6 +143,60 @@ def forward_schedule(plan: ForwardPlan) -> list[list[tuple[int, int]]]:
             for b in range(plan.grid)]
 
 
+# the update's tiles (csrc/general_train.cu upd::TJ, TM, BK): 128 particles by
+# 128 rows of M_k, stages 32 deep along N
+UPDATE_TILE_J, UPDATE_TILE_M, UPDATE_TILE_K = 128, 128, 32
+# a slice walks at least this many stages, and a tile takes at most this many
+# slices: each slice adds a partial tile that the tile's units read back
+UPDATE_MIN_SLICE_STAGES, UPDATE_MAX_SLICES = 4, 8
+
+
+class UpdatePlan(NamedTuple):
+    tiles: int  # 128 x 128 tiles of the (J, M_k) output G^T: arrival counters
+    col_tiles: int  # tiles across M_k
+    slices: int  # slices of the depth N a tile is cut into: a prior partial each
+    depth: int  # N padded to a multiple of UPDATE_TILE_K: P^T's split rows
+    grid: int  # persistent blocks, one an SM, at most one a work unit
+
+
+def update_plan(n: int, m_k: int, j: int, sms: int = H100_SMS) -> UpdatePlan:
+    """The update's tiles, slices of N, padded depth and grid on a card of
+    ``sms`` SMs: as many slices as fill the SMs with (tile, slice) units, at
+    most ``UPDATE_MAX_SLICES`` and none shallower than
+    ``UPDATE_MIN_SLICE_STAGES`` stages unless N is, and none empty. A tile is
+    cut only where all units fit one block an SM at once, since a cut tile's
+    units wait for each other."""
+    col_tiles = -(-m_k // UPDATE_TILE_M)
+    tiles = -(-j // UPDATE_TILE_J) * col_tiles
+    stages = -(-n // UPDATE_TILE_K)
+    wanted = max(1, min(sms // tiles, UPDATE_MAX_SLICES, stages // UPDATE_MIN_SLICE_STAGES))
+    slices = -(-stages // -(-stages // wanted))
+    return UpdatePlan(tiles, col_tiles, slices, stages * UPDATE_TILE_K,
+                      min(sms, tiles * slices))
+
+
+def update_schedule(plan: UpdatePlan) -> list[list[tuple[int, int, int, int, int]]]:
+    """The work units each block of the update runs, in its order: block b
+    takes units b, b + grid, ..., unit u being slice u // tiles of tile u %
+    tiles, tile t being particle tile t // column tiles and M_k tile t %
+    column tiles, and slice s stages [s per, (s + 1) per) of N, per =
+    ceil(stages / slices) (the kernel's order). Entries are (particle tile,
+    M_k tile, slice, first stage, end stage)."""
+    stages = plan.depth // UPDATE_TILE_K
+    per = -(-stages // plan.slices)
+    units = plan.tiles * plan.slices
+    return [[(*divmod(u % plan.tiles, plan.col_tiles), u // plan.tiles,
+              (u // plan.tiles) * per, min(stages, (u // plan.tiles + 1) * per))
+             for u in range(b, units, plan.grid)]
+            for b in range(plan.grid)]
+
+
+def dc_pitch(j: int) -> int:
+    """Floats between rows of the (N, J) dc buffer: J rounded up to 4, the
+    16-byte stride of the update's TMA map."""
+    return -(-j // 4) * 4
+
+
 def split_operands_reference(p: torch.Tensor, u: torch.Tensor, k: int):
     """The forward's operands in plain PyTorch: ``(p_split, ut_split)``, the
     TF32 halves (:func:`tc_product.tf32_split`) of P (N, M_k) as (2, N, k) and
@@ -160,10 +224,39 @@ def split_operands(p: torch.Tensor, u: torch.Tensor, k: int):
         p_split = torch.empty((2, n, k), dtype=torch.float32, device=p.device)
         ut_split = torch.empty((2, j, k), dtype=torch.float32, device=p.device)
         err = build.load("general_train", _SIGNATURES).plst_general_split_operands(
-            p.data_ptr(), u.data_ptr(), p_split.data_ptr(), ut_split.data_ptr(), n, m_k, k, j,
-            torch.cuda.current_stream().cuda_stream)
+            p.data_ptr(), u.data_ptr(), p_split.data_ptr(), ut_split.data_ptr(), None, n, m_k,
+            k, j, update_plan(n, m_k, j).depth, torch.cuda.current_stream().cuda_stream)
     build.check(err, "general_train split_operands")
     return p_split, ut_split
+
+
+def split_update_operand_reference(p: torch.Tensor, k: int, depth: int) -> torch.Tensor:
+    """The update's B operand in plain PyTorch: the TF32 halves of P^T, P (N,
+    M_k), as (2, k, depth), K-major along N, zero in rows M_k .. k - 1 and
+    columns N .. depth - 1."""
+    n, m_k = p.shape
+    out = torch.zeros((2, k, depth), dtype=torch.float32, device=p.device)
+    out[0, :m_k, :n], out[1, :m_k, :n] = tc_product.tf32_split(p.to(torch.float32).T.contiguous())
+    return out
+
+
+def split_update_operand(p: torch.Tensor, k: int, depth: int) -> torch.Tensor:
+    """:func:`split_update_operand_reference` on the card (``init_run_kernel``
+    writing P^T's halves alone), for an fp32 CUDA P; the plain version for a
+    CPU P."""
+    if p.device.type == "cpu":
+        return split_update_operand_reference(p, k, depth)
+    n, m_k = p.shape
+    if p.dtype != torch.float32:
+        raise ValueError(f"split_update_operand: P {tuple(p.shape)} {p.dtype}")
+    p = p.contiguous()
+    with torch.cuda.device(p.device):
+        pt_split = torch.empty((2, k, depth), dtype=torch.float32, device=p.device)
+        err = build.load("general_train", _SIGNATURES).plst_general_split_operands(
+            p.data_ptr(), None, None, None, pt_split.data_ptr(), n, m_k, k, 1, depth,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "general_train split_update_operand")
+    return pt_split
 
 
 def check_math(device="cuda") -> tuple[int, int]:
@@ -186,6 +279,17 @@ def forward_product(p_split: torch.Tensor, ut_split: torch.Tensor) -> torch.Tens
     8-deep step at a time)."""
     (p_hi, p_lo), (u_hi, u_lo) = p_split, ut_split
     return (p_lo @ u_hi.T + p_hi @ u_lo.T) + p_hi @ u_hi.T
+
+
+def update_product(dc: torch.Tensor, pt_split: torch.Tensor, m_k: int) -> torch.Tensor:
+    """The update's 3xTF32 product G = P^T dc (M_k, J) from its operands, in
+    fp32: dc (N, J) split into TF32 halves as the kernel splits its fragments,
+    and P^T's split halves; G^T = (a_lo b_hi + a_hi b_lo) + a_hi b_hi with A =
+    dc^T and B = P^T over the padded depth (its columns past N are zero)."""
+    n = dc.shape[0]
+    a_hi, a_lo = tc_product.tf32_split(dc.to(torch.float32).T.contiguous())
+    b_hi, b_lo = pt_split[0, :m_k, :n], pt_split[1, :m_k, :n]
+    return ((a_lo @ b_hi.T + a_hi @ b_lo.T) + a_hi @ b_hi.T).T
 
 
 def step_operations(kind: str, n: int, m_k: int, j: int) -> int:
@@ -375,19 +479,22 @@ def general_train(
                  *cost_forms.GH16_SCALED_WEIGHTS],
                 dtype=torch.float32,
             )
-            upd = tc_product.split_k(m_k, j, n)  # a prior partial and a counter per tile
             sms = torch.cuda.get_device_properties(device).multi_processor_count
             fwd = forward_plan(n, m_k, j, sms)  # a cost partial per tile, the split operands
+            upd = update_plan(n, m_k, j, sms)  # a counter a tile, a prior partial a unit
+            slab = upd.slices * upd.tiles * UPDATE_TILE_J * UPDATE_TILE_M if upd.slices > 1 else 0
             with torch.cuda.device(device):
                 u_a = u0.to(torch.float32).clone(memory_format=torch.contiguous_format)
                 u_b = torch.empty_like(u_a)
-                dc = torch.empty((n, j), dtype=torch.float32, device=device)
+                dc = torch.empty((n, dc_pitch(j)), dtype=torch.float32, device=device)
                 cost_partials = torch.empty(fwd.tiles, dtype=torch.float64, device=device)
                 # written by the kernel: the run's first launch and every update
                 p_split = torch.empty((2, n, fwd.k), dtype=torch.float32, device=device)
                 ut_split = torch.empty((2, j, fwd.k), dtype=torch.float32, device=device)
-                prior_partials = torch.empty(upd.tiles, dtype=torch.float64, device=device)
-                slabs = torch.empty(max(upd.slab, 1), dtype=torch.float32, device=device)
+                pt_split = torch.empty((2, fwd.k, upd.depth), dtype=torch.float32, device=device)
+                prior_partials = torch.empty(upd.tiles * upd.slices, dtype=torch.float64,
+                                             device=device)
+                slabs = torch.empty(max(slab, 1), dtype=torch.float32, device=device)
                 counters = torch.empty(upd.tiles, dtype=torch.int32, device=device)
                 energies = torch.full((num_steps,), math.nan, dtype=torch.float32, device=device)
                 state = torch.empty(4, dtype=torch.int32, device=device)
@@ -399,14 +506,16 @@ def general_train(
                 u_a.data_ptr(), u_b.data_ptr(), dc.data_ptr(), cost_partials.data_ptr(),
                 prior_partials.data_ptr(), slabs.data_ptr(), counters.data_ptr(),
                 energies.data_ptr(), state.data_ptr(), p_split.data_ptr(), ut_split.data_ptr(),
-                n, m_k, fwd.k, j, j0, j_total, int(num_steps), cost_forms.COST_KINDS.index(kind),
-                DISCRETISATIONS.index(discretisation), upd.slices, fwd.grid,
+                pt_split.data_ptr(), n, m_k, fwd.k, j, j0, j_total, int(num_steps),
+                cost_forms.COST_KINDS.index(kind), DISCRETISATIONS.index(discretisation),
+                dc.shape[1], upd.depth, upd.slices, fwd.grid, upd.grid,
                 host_params.data_ptr(), float(eta), float(patience), int(seed), int(zero_noise),
                 torch.cuda.current_stream().cuda_stream,
             )
         build.check(err, "general_train kernel")
         general_train.launches += 1
         general_train.steps += int(num_steps)
+        general_train.update_wgmma_steps += int(num_steps)
         u = u_a if num_steps % 2 == 0 else u_b
         energies = energies.to(dtype)
         with span("pls.general_train.stopper"), torch.cuda.device(device):
@@ -416,3 +525,4 @@ def general_train(
 
 general_train.launches = 0
 general_train.steps = 0
+general_train.update_wgmma_steps = 0
